@@ -6,26 +6,54 @@ Phases, each of which fails the run (exit code 1) when it fails:
 
 1. device: a CUDA card must be present (no CPU fallback); prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles every CUDA kernel of the path from ``csrc/`` (one nvcc
+2. build: compiles every CUDA kernel of the paths from ``csrc/`` (one nvcc
    per source, all started together) and prints ptxas's report;
-3. kernel against plain version: the arguments of the first 3 kernel
-   launches of the full-scale cycle, of a small snapshot with GPU requests
-   and of a gang that must be discarded go through the kernel and through
-   its plain PyTorch version on the card; every output must be bitwise
-   equal (tolerance 0);
-4. main path: ``Session(_synthetic_cluster(10000, 6250, 16), gang +
+3. round placer against its plain version: the arguments of the first 3
+   kernel launches of the full-scale cycle, of a small snapshot with GPU
+   requests and of a gang that must be discarded go through the kernel and
+   through its plain PyTorch version on the card; every output must be
+   bitwise equal (tolerance 0);
+4. static-key path: ``Session(_synthetic_cluster(10000, 6250, 16), gang +
    binpack).run_allocate()`` on the card, the repository's north-star size
    (10,000 nodes, 100,000 pending tasks); pack, cycle and apply are timed
    apart; the launch counts are set to 0 just before and read just after,
-   and every kernel must have launched; the decision fingerprint must be
-   the one the JAX package and its numpy oracle give, f61d52ccc18b1e69;
+   and the round placer must have launched; the decision fingerprint must
+   be the one the JAX package and its numpy oracle give, f61d52ccc18b1e69;
 5. sub-scale: at (1024, 640, 16) the kernel cycle and the plain cycle on the
    card give equal packed decisions, with fingerprint 60a8509ec33e772c;
-6. kernel time: CUDA events around launches at the main path's shapes,
-   beside the plain version's time and the least time the card could take.
+6. round placer time: CUDA events around launches at the main path's
+   shapes, beside the plain version's time and the least time the card
+   could take;
+7. dynamic-key placer against its plain version, bitwise: the first 3
+   launches of check B's cycle, and small built inputs for a gang discard
+   and demotion, a zero-deserved queue, drf with 3 namespaces, GPU
+   requests, the hdrf guard, a short pop budget and padded candidates;
+   and the segmented sum (the cycle's drf namespace fold, once a round)
+   against its plain version, bitwise, on check B's job allocations at the
+   cycle's start and at the recorded launches, and on seeded values whose
+   sums depend on the order;
+8. check A: the bench's fair-share configuration 3 (bench.py:680-716: 1024
+   nodes, 8 weighted queues, 3,125 gangs of 16 tasks, drf job order,
+   binpack) built without a Session; fingerprint c4b4ff88c1a32065, 16,404
+   tasks placed;
+9. check B, the dynamic-key main path: ``Session(cluster of check A, the
+   shipped conf/volcano-scheduler.conf).run_allocate()`` (drf job and
+   namespace order, proportion, predicates, nodeorder, binpack, priority,
+   gang, conformance); the counts are set to 0 just before and read just
+   after, and the dynamic-key placer and the segmented sum must have
+   launched; fingerprint
+   f2d84749323295e1, 16,530 tasks placed, 1,330 jobs ready;
+10. checks C and D: the shipped conf at (1024, 640, 16), kernel cycle and
+   plain cycle on the card, both 3ae3ff8ac7b0b9b7; and at the north-star
+   size, ca79ec8f9cd6b7f6 with 16 tasks placed (every queue's deserved is
+   0 there: the reference's proportion sentinel, ROADMAP section 3 (d));
+11. dynamic-key placer and segmented sum times at check B's shapes, as
+   phase 6, with ``index_add_`` as the segmented sum's library call.
 
-The second-to-last line holds the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The expected fingerprints are the JAX package's scan path's (and, for A,
+B and D, its oracle's too). The second-to-last line holds the kernels'
+JSON record, the last line ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +68,11 @@ FULL = (10000, 6250, 16)
 FULL_SHA = "f61d52ccc18b1e69"
 SUB = (1024, 640, 16)
 SUB_SHA = "60a8509ec33e772c"
+#: the dynamic-key checks: fingerprint, tasks placed (and jobs ready)
+CHECK_A = ("c4b4ff88c1a32065", 16404)
+CHECK_B = ("f2d84749323295e1", 16530, 1330)
+CHECK_C = "3ae3ff8ac7b0b9b7"
+CHECK_D = ("ca79ec8f9cd6b7f6", 16)
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -71,35 +104,68 @@ def gang_binpack_conf():
         Tier([PluginOption("gang"), PluginOption("binpack")])])
 
 
+def shipped_conf():
+    """conf/volcano-scheduler.conf as the framework's dataclasses (the card's
+    machine has no PyYAML)."""
+    from volcano_tpu_torch.framework import (PluginOption,
+                                             SchedulerConfiguration, Tier)
+    return SchedulerConfiguration(
+        actions=["enqueue", "allocate", "backfill"], tiers=[
+            Tier([PluginOption(n) for n in ("priority", "gang",
+                                            "conformance")]),
+            Tier([PluginOption(n) for n in ("drf", "predicates",
+                                            "proportion", "nodeorder",
+                                            "binpack")])])
+
+
+def fair_share_cluster():
+    """The bench's configuration 3 (bench.py:680-716): 1024 nodes, 8 queues
+    q0..q7 of weight 1 + i % 4, 3,125 gangs of 16 tasks, job j in q{j % 8}."""
+    from volcano_tpu_torch.api import QueueInfo
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    c = _synthetic_cluster(n_nodes=1024, n_jobs=3125, tasks_per_job=16)
+    for q in range(8):
+        c.add_queue(QueueInfo(f"q{q}", weight=1 + q % 4))
+    for j, job in enumerate(c.jobs.values()):
+        job.queue = f"q{j % 8}"
+    return c
+
+
 class Recorder:
     """Placer seam: launches the kernel and keeps a copy of the arguments
-    of its first ``keep`` launches; ``stop_after`` ends the cycle early."""
+    of its first ``keep`` launches; ``stop_after`` ends the cycle early.
+    ``dyn`` watches the dynamic-key placer instead of the round placer."""
 
     class Stop(Exception):
         pass
 
-    def __init__(self, keep, stop_after=None):
-        self.keep, self.stop_after = keep, stop_after
+    def __init__(self, keep, stop_after=None, dyn=False):
+        self.keep, self.stop_after, self.dyn = keep, stop_after, dyn
         self.calls = []
 
-    def __call__(self, cfg, K, M, args):
+    def __call__(self, cfg, *shape_and_args):
+        from volcano_tpu_torch.ops import dyn_placer as dp
         from volcano_tpu_torch.ops import round_placer as rp
+        *shape, args = shape_and_args
         if len(self.calls) < self.keep:
-            self.calls.append((cfg, K, M, [a.clone() for a in args]))
+            self.calls.append((cfg, *shape, [a.clone() for a in args]))
         if self.stop_after is not None and len(self.calls) >= self.stop_after:
             raise Recorder.Stop()
-        return rp.round_place_cuda(cfg, K, M, args)
+        if self.dyn:
+            return dp.dyn_place_cuda(cfg, *shape, args)
+        return rp.round_place_cuda(cfg, *shape, args)
 
 
-def record_launches(ssn, keep, stop_after=None):
+def record_launches(ssn, keep, stop_after=None, dyn=False):
     """Run the session's allocate cycle on the card through a Recorder."""
     from volcano_tpu_torch.arrays import to_device
     from volcano_tpu_torch.ops.allocate_scan import make_allocate_cycle
     cfg, extras = ssn._derived_allocate_inputs()
-    rec = Recorder(keep, stop_after)
+    rec = Recorder(keep, stop_after, dyn)
+    seam = dict(dyn_placer=rec) if dyn else dict(placer=rec)
     try:
-        make_allocate_cycle(cfg, placer=rec)(to_device(ssn.snap, "cuda"),
-                                             to_device(extras, "cuda"))
+        make_allocate_cycle(cfg, **seam)(to_device(ssn.snap, "cuda"),
+                                         to_device(extras, "cuda"))
     except Recorder.Stop:
         pass
     return rec.calls
@@ -225,6 +291,198 @@ def time_kernel(call):
                 attempts=attempts, bytes=nbytes, ops=ops)
 
 
+def compare_dyn_kernel_plain(calls):
+    """As compare_kernel_plain, for the dynamic-key placer."""
+    import torch
+
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    worst = 0.0
+    for cfg, C, KP, M, args in calls:
+        got = dp.dyn_place_cuda(cfg, C, KP, M, args)
+        want = dp.dyn_place_plain(cfg, C, KP, M, args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError("dyn kernel and plain version differ")
+    return worst
+
+
+def dyn_built_calls():
+    """The small built inputs of the dynamic-key cases
+    (``volcano_tpu_torch/ops/dyn_cases.py``), on the card."""
+    import torch
+
+    from volcano_tpu_torch.ops.allocate_scan import AllocateConfig
+    from volcano_tpu_torch.ops.dyn_cases import (DYN_CASES, PLACER_WEIGHTS,
+                                                 make_dyn_inputs)
+    calls = []
+    for case in sorted(DYN_CASES):
+        for seed in (0, 1, 2):
+            flags, args = make_dyn_inputs(seed, **DYN_CASES[case])
+            cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+            calls.append((cfg, 4, 12, 4, [torch.from_numpy(a).cuda()
+                                          for a in args]))
+    return calls
+
+
+def ops_per_pop(cfg, a, nkeys):
+    """Float32 operations of one pop's job selection, counted from the
+    reference formulas (pallas_place._dyn_kernel): per queue the gate and
+    share, per job the gate (a one-hot sum over Q) and each key column,
+    per namespace the fold of the member allocations over the jobs."""
+    R, J, Q = a.jalloc.shape[0], a.jalloc.shape[1], a.qalloc.shape[0]
+    S = a.nsm.shape[0] if a.nsm is not None else 0
+    return (Q * (5 * R + 1) + J * (2 * Q + 5) + J * nkeys * 2
+            + J * (2 * Q + 3 * R + S + 4) + S * R * J * 2)
+
+
+def time_dyn_kernel(call):
+    """Dynamic-key kernel ms per launch (CUDA events), plain version ms per
+    call, and the least time for the same work on this card."""
+    import torch
+
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    cfg, C, KP, M, args = call
+    for _ in range(3):
+        dp.dyn_place_cuda(cfg, C, KP, M, args)
+    torch.cuda.synchronize()
+    reps = 50
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = dp.dyn_place_cuda(cfg, C, KP, M, args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    stats = {}
+    dp.dyn_place_plain(cfg, C, KP, M, args, stats={})   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_reps = 3
+    for _ in range(plain_reps):
+        dp.dyn_place_plain(cfg, C, KP, M, args, stats=stats)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000 / plain_reps
+    attempts = stats["attempts"] / plain_reps
+    pops = stats["pops"] / plain_reps
+    a = dp.unpack_args(cfg, args)
+    R, N = a.idle.shape
+    G = a.gidle0.shape[0] if cfg.enable_gpu else 0
+    plan, _ = dp.key_plan(cfg, a.hcols.shape[0] if a.hcols is not None
+                          else 0)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in list(args) + list(out))
+    ops = (attempts * N * ops_per_node(cfg, R, G)
+           + pops * ops_per_pop(cfg, a, len(plan)))
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                attempts=attempts, pops=pops, bytes=nbytes, ops=ops)
+
+
+def seg_fold_calls(ssn, dyn_calls):
+    """The segmented sum's inputs at check B's shapes: the cycle's namespace
+    fold (job allocations [J, R] by namespace, invalid jobs dropped) at the
+    cycle's start and at each recorded dyn launch; the same segments over
+    seeded values whose float32 sums depend on the order; and those values
+    into J segments, the shape of an hdrf subtree sum."""
+    import torch
+
+    from volcano_tpu_torch.arrays import to_device
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    jobs = to_device(ssn.snap, "cuda").jobs
+    S = int(ssn.snap.namespace_weight.shape[0])
+    seg = torch.where(jobs.valid, jobs.namespace.to(torch.int32),
+                      torch.full((), -1, dtype=torch.int32, device="cuda"))
+    calls = [(jobs.allocated.contiguous(), seg, S)]
+    for cfg, _, _, _, args in dyn_calls:
+        calls.append((dp.unpack_args(cfg, args).jalloc.T.contiguous(), seg,
+                      S))
+    J, R = jobs.allocated.shape
+    g = torch.Generator().manual_seed(0)
+    vals = (torch.rand((J, R), generator=g)
+            * 10.0 ** torch.randint(0, 9, (J, R), generator=g)).cuda()
+    tree = torch.randint(-1, J, (J,), generator=g, dtype=torch.int32)
+    return calls + [(vals, seg, S), (vals, tree.cuda(), J)]
+
+
+def compare_seg_fold_plain(calls):
+    """Max |kernel - plain| of the segmented sum; raises unless every output
+    is bitwise equal."""
+    import torch
+
+    from volcano_tpu_torch.ops import seg_fold as sf
+    worst = 0.0
+    for vals, seg, num in calls:
+        got = sf.seg_fold_cuda(vals, seg, num)
+        want = sf.seg_fold_plain(vals, seg, num)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got.double() - want.double()).abs().max()))
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError("seg_fold kernel and plain version differ")
+    return worst
+
+
+def time_seg_fold(call):
+    """Segmented sum ms per launch (CUDA events), plain version ms per call,
+    ``index_add_`` ms per call (the library call for the same sums, in an
+    order of its own), and the least time for the same work on this card."""
+    import torch
+
+    from volcano_tpu_torch.ops import seg_fold as sf
+    vals, seg, num = call
+
+    def events(fn, reps):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    ms = events(lambda: sf.seg_fold_cuda(vals, seg, num), 200)
+    keep = (seg >= 0) & (seg < num)
+    idx = torch.where(keep, seg, num).long()
+    acc = torch.zeros((num + 1, vals.shape[1]), device=vals.device)
+    library_ms = events(lambda: acc.index_add_(0, idx, vals), 200)
+    sf.seg_fold_plain(vals, seg, num)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sf.seg_fold_plain(vals, seg, num)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 100
+    # each input read once, the output written once; one add per kept row
+    # and dim
+    nbytes = (vals.numel() + seg.numel() + num * vals.shape[1]) * 4
+    ops = int(keep.sum()) * vals.shape[1]
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                rows=vals.shape[0], segments=num, bytes=nbytes, ops=ops)
+
+
+def dyn_counts():
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    from volcano_tpu_torch.ops import seg_fold as sf
+    return dict(launches=dp.launches, pops=dp.pops,
+                early_stops=dp.early_stops, seg_fold_launches=sf.launches)
+
+
+def zero_dyn_counts():
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    from volcano_tpu_torch.ops import seg_fold as sf
+    dp.launches = dp.pops = dp.early_stops = sf.launches = 0
+
+
 def main():
     # ---- 1. device ------------------------------------------------------
     try:
@@ -248,7 +506,7 @@ def main():
     # ---- 2. build -------------------------------------------------------
     try:
         t0 = time.perf_counter()
-        logs = _build.build(["round_placer"])
+        logs = _build.build(["round_placer", "dyn_placer", "seg_fold"])
         log(f"build {time.perf_counter() - t0:.1f}s")
         for name, text in logs.items():
             log(f"--- nvcc {name}\n{text.strip()}")
@@ -306,9 +564,9 @@ def main():
         fail("4 (main path)", e)
 
     # ---- 5. sub-scale cycle, kernel against plain -----------------------
+    from volcano_tpu_torch.arrays import to_device
+    from volcano_tpu_torch.ops.allocate_scan import make_allocate_cycle
     try:
-        from volcano_tpu_torch.arrays import to_device
-        from volcano_tpu_torch.ops.allocate_scan import make_allocate_cycle
         sub = Session(_synthetic_cluster(*SUB), conf, device="cuda")
         cfg, extras = sub._derived_allocate_inputs()
         s_d, e_d = to_device(sub.snap, "cuda"), to_device(extras, "cuda")
@@ -342,6 +600,144 @@ def main():
             "bound_by": t["bound_by"], "library_ms": None}]
     except Exception as e:
         fail("6 (kernel time)", e)
+
+    # ---- 7. dynamic-key placer against its plain version --------------
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    shipped = shipped_conf()
+    try:
+        t0 = time.perf_counter()
+        ci_b = fair_share_cluster()
+        build_b_s = time.perf_counter() - t0
+        ssn_b = Session(ci_b, shipped, device="cuda")
+        b_calls = record_launches(ssn_b, keep=3, stop_after=3, dyn=True)
+        assert len(b_calls) == 3, "check B's cycle made under 3 launches"
+        built = dyn_built_calls()
+        dyn_err = compare_dyn_kernel_plain(b_calls + built)
+        log(json.dumps({"phase": "dyn_kernel_vs_plain", "launches_compared":
+                        len(b_calls + built), "max_abs_err": dyn_err}))
+        sf_calls = seg_fold_calls(ssn_b, b_calls)
+        sf_err = compare_seg_fold_plain(sf_calls)
+        log(json.dumps({"phase": "seg_fold_vs_plain", "calls_compared":
+                        len(sf_calls), "max_abs_err": sf_err}))
+    except Exception as e:
+        fail("7 (dynamic-key placer against plain version)", e)
+
+    # ---- 8. check A: the bench's fair-share configuration, no Session ---
+    try:
+        from volcano_tpu_torch.arrays import pack
+        from volcano_tpu_torch.ops.allocate_scan import (AllocateConfig,
+                                                         AllocateExtras,
+                                                         derive_batching)
+        snap_a, _ = pack(fair_share_cluster())
+        cfg_a = derive_batching(AllocateConfig(
+            binpack_weight=1.0, least_allocated_weight=0.0,
+            balanced_weight=0.0, taint_prefer_weight=0.0,
+            drf_job_order=True, enable_gpu=False), has_proportion=False)
+        zero_dyn_counts()
+        t0 = time.perf_counter()
+        res = make_allocate_cycle(cfg_a)(
+            to_device(snap_a, "cuda"),
+            to_device(AllocateExtras.neutral(snap_a), "cuda"))
+        tn, tm = res.task_node.cpu().numpy(), res.task_mode.cpu().numpy()
+        cycle_a_ms = (time.perf_counter() - t0) * 1000
+        sha = fingerprint(tn, tm)
+        placed = int((tm > 0).sum())
+        log(json.dumps({"phase": "check_A", "cycle_ms": cycle_a_ms,
+                        **dyn_counts(), "placed": placed,
+                        "fingerprint": sha}))
+        assert sha == CHECK_A[0], f"fingerprint {sha} != {CHECK_A[0]}"
+        assert placed == CHECK_A[1], f"{placed} placed, not {CHECK_A[1]}"
+    except Exception as e:
+        fail("8 (check A)", e)
+
+    # ---- 9. check B: the dynamic-key main path --------------------------
+    try:
+        zero_dyn_counts()
+        t0 = time.perf_counter()
+        ssn_b.run_allocate()
+        session_b_ms = (time.perf_counter() - t0) * 1000
+        counts_b = dyn_counts()
+        res = ssn_b.last_allocate
+        sha = fingerprint(res.task_node, res.task_mode)
+        placed = int((res.task_mode > 0).sum())
+        ready = int(res.job_ready.sum())
+        log(json.dumps({"phase": "check_B", "nodes": 1024, "tasks": 50000,
+                        "cluster_build_s": build_b_s,
+                        "pack_ms": ssn_b.stats["pack_ms"],
+                        "cycle_ms": ssn_b.stats["cycle_ms"],
+                        "apply_ms": ssn_b.stats["apply_ms"],
+                        "run_allocate_ms": session_b_ms,
+                        "binds": len(ssn_b.binds), **counts_b,
+                        "placed": placed, "jobs_ready": ready,
+                        "fingerprint": sha}))
+        assert counts_b["launches"] > 0, "the main path launched no kernel"
+        assert counts_b["seg_fold_launches"] > 0, \
+            "the main path launched no segmented sum"
+        assert sha == CHECK_B[0], f"fingerprint {sha} != {CHECK_B[0]}"
+        assert (placed, ready) == CHECK_B[1:], (placed, ready)
+    except Exception as e:
+        fail("9 (check B, the dynamic-key main path)", e)
+
+    # ---- 10. checks C and D ---------------------------------------------
+    try:
+        sub_c = Session(_synthetic_cluster(*SUB), shipped, device="cuda")
+        cfg, extras = sub_c._derived_allocate_inputs()
+        s_d, e_d = to_device(sub_c.snap, "cuda"), to_device(extras, "cuda")
+        zero_dyn_counts()
+        t0 = time.perf_counter()
+        k_res = make_allocate_cycle(cfg)(s_d, e_d)
+        k_packed = k_res.packed_decisions().cpu()
+        k_ms = (time.perf_counter() - t0) * 1000
+        counts_c = dyn_counts()
+        t0 = time.perf_counter()
+        p_res = make_allocate_cycle(cfg, dyn_placer=dp.dyn_place_plain)(
+            s_d, e_d)
+        p_packed = p_res.packed_decisions().cpu()
+        p_ms = (time.perf_counter() - t0) * 1000
+        sha_c = fingerprint(k_res.task_node.cpu(), k_res.task_mode.cpu())
+        ssn_d = Session(_synthetic_cluster(*FULL), shipped, device="cuda")
+        zero_dyn_counts()
+        ssn_d.run_allocate()
+        res = ssn_d.last_allocate
+        sha_d = fingerprint(res.task_node, res.task_mode)
+        placed_d = int((res.task_mode > 0).sum())
+        log(json.dumps({"phase": "checks_C_D", "C_kernel_cycle_ms": k_ms,
+                        "C_plain_cycle_ms": p_ms, "C_counts": counts_c,
+                        "C_fingerprint": sha_c,
+                        "D_cycle_ms": ssn_d.stats["cycle_ms"],
+                        "D_counts": dyn_counts(), "D_placed": placed_d,
+                        "D_fingerprint": sha_d}))
+        assert torch.equal(k_packed, p_packed), "C: kernel and plain differ"
+        assert sha_c == CHECK_C, f"C: fingerprint {sha_c} != {CHECK_C}"
+        assert (sha_d, placed_d) == CHECK_D, (sha_d, placed_d)
+    except Exception as e:
+        fail("10 (checks C and D)", e)
+
+    # ---- 11. dynamic-key placer and segmented sum times, check B's shapes
+    try:
+        t = time_dyn_kernel(b_calls[0])
+        log(json.dumps({"phase": "dyn_kernel_time", **t}))
+        kernels.append({
+            "name": "dyn_placer", "route": "cuda",
+            "source": "volcano_tpu_torch/csrc/dyn_placer.cu",
+            "replaces": "volcano_tpu/ops/pallas_place.py:655",
+            "launches": counts_b["launches"], "max_abs_err": dyn_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+        # the namespace fold of the state after the cycle's first launch
+        t = time_seg_fold(sf_calls[1])
+        log(json.dumps({"phase": "seg_fold_time", **t}))
+        kernels.append({
+            "name": "seg_fold", "route": "cuda",
+            "source": "volcano_tpu_torch/csrc/seg_fold.cu",
+            "replaces": "volcano_tpu/ops/fairshare.py:91",
+            "launches": counts_b["seg_fold_launches"],
+            "max_abs_err": sf_err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    except Exception as e:
+        fail("11 (dynamic-key placer and segmented sum times)", e)
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,16 +1,30 @@
 """Where the time of one volcano_tpu_torch allocate cycle goes, on the card.
 
-    python3 scripts/torch_cycle_profile.py [--nodes 10000 --jobs 6250
-        --tasks-per-job 16] [--out PATH]
+    python3 scripts/torch_cycle_profile.py [--cell north_star | fair_share]
+        [--nodes 10000 --jobs 6250 --tasks-per-job 16] [--window N]
+        [--cycles 2] [--out PATH]
 
-Builds the synthetic cluster (gang + binpack conf), packs and uploads it
-once, runs the allocate cycle once to build and warm the kernel, then:
+The ``north_star`` cell (default) is the synthetic cluster of the given
+size under gang + binpack: the static-key path. The ``fair_share`` cell is
+``chip_smoke.py``'s check B: the bench's configuration 3 (1024 nodes, 8
+weighted queues, 3,125 gangs of 16) under the shipped
+``conf/volcano-scheduler.conf``: the dynamic-key path. The script packs and
+uploads the snapshot once, runs the allocate cycle once to build and warm
+the kernels, then:
 
-1. times two plain runs of the cycle on the host clock (each ends in a
-   synchronize), with the round placer's launch count;
-2. runs it once more under ``torch.profiler`` and reports the device time by
-   kernel name and the union of device busy intervals against the
-   profiled wall time (the device's idle share).
+1. times ``--cycles`` plain runs of the cycle on the host clock (each ends
+   in a synchronize), with the kernels' launch counts;
+2. runs it once more under ``torch.profiler`` and reports the device time
+   by kernel name and the union of device busy intervals against the
+   profiled wall time (the device's idle share). With ``--window N`` the
+   profiled run stops after N placer launches: a steady window of a long
+   cycle, whose numbers are per round. The profiled run also reports the
+   host time of the cycle's selection steps (``host_ms_by_step``: each of
+   ``namespace_shares``, ``drf_job_shares``, ``hdrf_level_keys`` and
+   ``lex_argmin`` in ``ops/allocate_scan.py``, wrapped in a profiler
+   span) and the calls that make the host wait for the device or copy
+   between the two (``waits_by_name``: stream and device synchronisations,
+   memory copies), both per placer launch.
 
 Needs a CUDA card; prints one JSON object, and writes it to ``--out`` when
 given.
@@ -43,9 +57,15 @@ def busy_us(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cell", choices=("north_star", "fair_share"),
+                    default="north_star")
+    ap.add_argument("--window", type=int, default=0,
+                    help="profile only the first N placer launches")
     ap.add_argument("--nodes", type=int, default=10000)
     ap.add_argument("--jobs", type=int, default=6250)
     ap.add_argument("--tasks-per-job", type=int, default=16)
+    ap.add_argument("--cycles", type=int, default=2,
+                    help="timed cycles before the profiled one")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
 
@@ -56,6 +76,8 @@ def main():
     from volcano_tpu_torch.framework import (PluginOption,
                                              SchedulerConfiguration, Session,
                                              Tier)
+    from volcano_tpu_torch.ops import allocate_scan as tas
+    from volcano_tpu_torch.ops import dyn_placer as dp
     from volcano_tpu_torch.ops import round_placer as rp
     from volcano_tpu_torch.ops.allocate_scan import make_allocate_cycle
     from volcano_tpu_torch.synthetic import _synthetic_cluster
@@ -63,53 +85,126 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    conf = SchedulerConfiguration(actions=["allocate"], tiers=[
-        Tier([PluginOption("gang"), PluginOption("binpack")])])
-    ssn = Session(_synthetic_cluster(args.nodes, args.jobs,
-                                     args.tasks_per_job), conf, device="cuda")
+    if args.cell == "fair_share":
+        import chip_smoke
+        ci, conf = chip_smoke.fair_share_cluster(), chip_smoke.shipped_conf()
+    else:
+        conf = SchedulerConfiguration(actions=["allocate"], tiers=[
+            Tier([PluginOption("gang"), PluginOption("binpack")])])
+        ci = _synthetic_cluster(args.nodes, args.jobs, args.tasks_per_job)
+    ssn = Session(ci, conf, device="cuda")
     cfg, extras = ssn._derived_allocate_inputs()
     snap_d, extras_d = to_device(ssn.snap, "cuda"), to_device(extras, "cuda")
     cycle = make_allocate_cycle(cfg)
     cycle(snap_d, extras_d).packed_decisions().cpu()      # build + warm
 
+    try:
+        from volcano_tpu_torch.ops import seg_fold as sf
+    except ImportError:                   # a tree from before the kernel
+        sf = None
     wall = []
-    for _ in range(2):
-        rp.launches = 0
+    for _ in range(args.cycles):
+        rp.launches = dp.launches = 0
+        if sf is not None:
+            sf.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cycle(snap_d, extras_d).packed_decisions().cpu()
         wall.append((time.perf_counter() - t0) * 1000)
-    launches = rp.launches
+    launches = {"round_placer": rp.launches, "dyn_placer": dp.launches,
+                "seg_fold": sf.launches if sf is not None else None}
 
-    from torch.profiler import ProfilerActivity, profile
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def window(place):
+        def placer(*a):
+            if len(seen) >= args.window:
+                raise Stop()
+            seen.append(1)
+            return place(*a)
+        return placer
+
+    profiled = cycle
+    if args.window:
+        profiled = make_allocate_cycle(cfg, placer=window(rp.round_place),
+                                       dyn_placer=window(dp.dyn_place))
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    steps = ("namespace_shares", "drf_job_shares", "hdrf_level_keys",
+             "lex_argmin")
+
+    def span(name, fn):
+        def wrapped(*a, **kw):
+            with record_function("step:" + name):
+                return fn(*a, **kw)
+        return wrapped
+
+    for name in steps:
+        setattr(tas, name, span(name, getattr(tas, name)))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cycle(snap_d, extras_d).packed_decisions().cpu()
+        try:
+            profiled(snap_d, extras_d).packed_decisions().cpu()
+        except Stop:
+            torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1000
     by_name, intervals = {}, []
+    host_steps = {n: [0, 0.0] for n in steps}
+    waits = {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if ev.name.startswith("step:"):
+                h = host_steps[ev.name[5:]]
+                h[0] += 1
+                h[1] += (ev.time_range.end - ev.time_range.start) / 1000
+            elif "Synchronize" in ev.name or "Memcpy" in ev.name:
+                w = waits.setdefault(ev.name, [0, 0.0])
+                w[0] += 1
+                w[1] += (ev.time_range.end - ev.time_range.start) / 1000
+            continue
+        if ev.name.startswith("step:"):    # the spans' device-side echo
             continue
         s, e = ev.time_range.start, ev.time_range.end
         intervals.append((s, e))
+        if "Memcpy" in ev.name:            # the device side of a copy
+            w = waits.setdefault("device: " + ev.name, [0, 0.0])
+            w[0] += 1
+            w[1] += (e - s) / 1000
         d = by_name.setdefault(ev.name, [0, 0.0])
         d[0] += 1
         d[1] += (e - s) / 1000
     busy_ms = busy_us(intervals) / 1000
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     out = {
-        "card": card, "nodes": args.nodes,
-        "tasks": args.jobs * args.tasks_per_job,
-        "cycle_ms": wall, "round_placer_launches": launches,
+        "card": card, "cell": args.cell,
+        "nodes": int(ssn.snap.nodes.valid.sum()),
+        "tasks": int(ssn.snap.tasks.valid.sum()),
+        "cycle_ms": wall, "launches": launches,
+        "profiled_launches": len(seen) if args.window else None,
         "profiled_cycle_ms": prof_wall_ms,
         "device_events": sum(v[0] for v in by_name.values()),
         "device_busy_ms": busy_ms if intervals else None,
         "device_idle_share": (1 - busy_ms / prof_wall_ms) if intervals
         else None,
         "device_ms_by_name": {k: {"count": v[0], "ms": v[1]} for k, v in top},
+        "host_ms_by_step": {k: {"calls": v[0], "ms": v[1]}
+                            for k, v in host_steps.items()},
+        "waits_by_name": {k: {"calls": v[0], "ms": v[1]}
+                          for k, v in waits.items()},
     }
+    rounds = len(seen) if args.window else (launches["round_placer"]
+                                            + launches["dyn_placer"])
+    if rounds:
+        out["per_launch"] = {
+            "host_ms_by_step": {k: v[1] / rounds
+                                for k, v in host_steps.items()},
+            "waits_by_name": {k: v[0] / rounds for k, v in waits.items()}}
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import volcano_tpu.api as japi
@@ -16,11 +17,14 @@ import volcano_tpu_torch.api as tapi
 from volcano_tpu.framework import Session as JaxSession
 from volcano_tpu.framework import parse_conf as jax_parse_conf
 
-from torch_fixtures import random_cluster
+from torch_fixtures import (HDRF_SCENARIO, affinity_cluster, hdrf_cluster,
+                            random_cluster)
 from volcano_tpu_torch.framework import (PluginOption, SchedulerConfiguration,
                                          Session, Tier, parse_conf)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+with open(os.path.join(REPO, "conf", "volcano-scheduler.conf")) as _f:
+    SHIPPED = _f.read()
 
 CONFS = {
     "gang_binpack": "actions: allocate\ntiers:\n- plugins:\n  - name: gang\n"
@@ -36,6 +40,14 @@ CONFS = {
                         "  - name: priority\n  - name: gang\n"
                         "  - name: binpack\n    arguments:\n"
                         "      binpack.weight: 2.5\n",
+    # the built-in default (framework/conf.py) and the shipped
+    # conf/volcano-scheduler.conf: drf, proportion, predicates, nodeorder
+    "builtin_default": None,
+    "shipped": SHIPPED,
+    "drf_hdrf": "actions: allocate\ntiers:\n- plugins:\n  - name: drf\n"
+                "    enableHierarchy: true\n  - name: predicates\n"
+                "  - name: nodeorder\n    arguments:\n"
+                "      nodeaffinity.weight: 2\n",
 }
 
 
@@ -94,12 +106,80 @@ def test_conf_from_dataclasses_needs_no_yaml():
     assert ssn.binds
 
 
-@pytest.mark.parametrize("name", ["drf", "proportion", "predicates",
-                                  "nodeorder"])
+@pytest.mark.parametrize("name", ["tdm", "reservation", "task-topology",
+                                  "sla"])
 def test_unported_plugin_names_its_roadmap_item(name):
     conf = SchedulerConfiguration(tiers=[Tier([PluginOption(name)])])
     with pytest.raises(KeyError, match="ROADMAP"):
         Session(random_cluster(tapi, 0), conf, device="cpu")
+
+
+@pytest.mark.parametrize("conf_name", ["shipped", "builtin_default",
+                                       "drf_hdrf"])
+@pytest.mark.parametrize("seed", [1, 4])
+def test_node_affinity_and_volumes_match_jax_session(seed, conf_name):
+    """predicates + nodeorder feed the cycle node-affinity OR groups,
+    preferred-term scores and volume pins (framework/host_extras.py)."""
+    want, got, ssn = run_pair(lambda api: affinity_cluster(api, seed),
+                              conf_name)
+    assert got == want
+    assert got[0], "nothing was bound"
+    _, extras = ssn._derived_allocate_inputs()
+    assert (extras.task_or_group >= 0).any()
+    assert extras.template_na_score.any()
+    assert not extras.task_volume_ok.all()
+
+
+def test_shipped_conf_session_at_subscale():
+    """(64 nodes, 120 gangs of 8): the shipped conf's dynamic-key path
+    through a Session, with the vectorised bind path (512 binds and
+    more), against the JAX Session."""
+    from __graft_entry__ import _synthetic_cluster as jax_synth
+    from volcano_tpu_torch.synthetic import _synthetic_cluster as port_synth
+
+    def build(api):
+        synth = jax_synth if api is japi else port_synth
+        ci = synth(64, 120, 8, seed=5)
+        for q in range(4):
+            ci.add_queue(api.QueueInfo(f"q{q}", weight=1 + q))
+        for j, job in enumerate(ci.jobs.values()):
+            job.queue = f"q{j % 4}"
+        return ci
+
+    want, got, ssn = run_pair(build, "shipped")
+    assert got == want
+    assert len(got[0]) >= 512
+    cfg, extras = ssn._derived_allocate_inputs()
+    assert cfg.batch_rounds > 0 and cfg.drf_ns_order
+    assert np.isfinite(extras.queue_deserved).any()
+
+
+def test_chip_smoke_conf_is_the_shipped_conf():
+    """chip_smoke.py builds conf/volcano-scheduler.conf from dataclasses
+    (the card's machine has no PyYAML): the same configuration."""
+    import chip_smoke
+    assert chip_smoke.shipped_conf() == parse_conf(SHIPPED)
+
+
+def test_hierarchy_matches_jax():
+    """The hdrf tree of the hdrf_test.go scenario, and the Session with
+    hierarchical drf on it."""
+    from volcano_tpu.arrays import pack as jax_pack
+    from volcano_tpu.arrays.hierarchy import build_hierarchy as jax_build
+
+    from volcano_tpu_torch.arrays import pack
+    from volcano_tpu_torch.arrays.hierarchy import build_hierarchy
+    ci = hdrf_cluster(japi, *HDRF_SCENARIO)
+    snap, maps = jax_pack(ci)
+    Q, J = snap.queues.weight.shape[0], snap.jobs.valid.shape[0]
+    want = jax_build(ci, maps, Q, J)
+    port_ci = hdrf_cluster(tapi, *HDRF_SCENARIO)
+    got = build_hierarchy(port_ci, pack(port_ci)[1], Q, J)
+    for f in ("parent", "depth", "weight", "valid", "queue_path",
+              "job_leaf"):
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)),
+                                      getattr(got, f))
+    assert got.queue_path.shape[1] == 3
 
 
 def test_port_imports_without_jax():

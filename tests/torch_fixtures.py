@@ -3,7 +3,8 @@
 Clusters are built with either package's own ``api`` from one numpy seed;
 snapshots packed by the JAX package reach the port as the same bytes through
 ``arrays.schema.snapshot_from_numpy``; round placer inputs come from
-:func:`make_inputs`. Imports nothing of JAX at module level, so the card-only
+:func:`make_inputs`, dynamic-key placer inputs from the port's
+``ops/dyn_cases.py``. Imports nothing of JAX at module level, so the card-only
 tests can use it on a machine without JAX.
 """
 
@@ -13,6 +14,10 @@ import dataclasses
 import hashlib
 
 import numpy as np
+
+# the placer cases shared with chip_smoke.py
+from volcano_tpu_torch.ops.dyn_cases import (  # noqa: F401
+    DYN_CASES, DYN_FLAGS, PLACER_WEIGHTS, make_dyn_inputs)
 
 
 def tree_to_numpy(tree):
@@ -108,10 +113,6 @@ def random_cluster(api, seed, n_nodes=6, n_jobs=5, gpus=False, taints=False):
 
 F32, I32 = np.float32, np.int32
 
-#: score weights of the round placer cases: every score family on
-PLACER_WEIGHTS = dict(binpack_weight=0.7, least_allocated_weight=1.0,
-                      most_allocated_weight=0.5, balanced_weight=1.0)
-
 
 def make_inputs(seed, K=8, M=4, N=40, R=2, G=2, GR=2, P=3, gpu=True,
                 tight=False, releasing=False, big_gangs=False):
@@ -185,3 +186,68 @@ CASES = {
     "one_section": dict(gpu=True, K=1, M=8),
     "n_not_multiple_of_128": dict(gpu=True, N=200, M=6),
 }
+
+
+def affinity_cluster(api, seed, n_nodes=8, n_jobs=6):
+    """random_cluster with node labels, required node-affinity OR terms,
+    preferred terms and volume claims (one pinned to a node, one that
+    cannot bind): what the predicates and nodeorder plugins feed the cycle
+    through framework/host_extras.py."""
+    rng = np.random.RandomState(seed)
+    ci = random_cluster(api, seed, n_nodes=n_nodes, n_jobs=n_jobs)
+    for i, node in enumerate(ci.nodes.values()):
+        node.labels.update({"zone": "ab"[i % 2], "tier": str(i % 3)})
+    ci.pvcs["local"] = api.cluster_info.PersistentVolumeClaim("local", node_name="n1")
+    ci.pvcs["lost"] = api.cluster_info.PersistentVolumeClaim("lost", bindable=False)
+    zone_a = api.NodeSelectorTerm(match_labels={"zone": "a"})
+    tier_hi = api.NodeSelectorTerm(match_expressions=[("tier", "Gt", ("0",))])
+    for job in ci.jobs.values():
+        for task in job.tasks.values():
+            u = rng.rand()
+            if u < 0.3:
+                task.affinity_required = [zone_a, tier_hi]
+            elif u < 0.45:
+                task.affinity_required = [{"zone": "b"}]
+            if rng.rand() < 0.4:
+                task.affinity_preferred = [(tier_hi, 3), ({"zone": "b"}, 5)]
+    first = [next(iter(job.tasks.values())) for job in ci.jobs.values()]
+    first[0].pvcs = ["local"]
+    first[1].pvcs = ["lost"]
+    return ci
+
+
+def hdrf_cluster(api, node_cpu, node_mem, queue_specs, pg_specs):
+    """tests/test_hdrf._hdrf_cluster, built with ``api``: one node, queues
+    (name, hierarchy, weights), and PodGroups (pg, queue, n_tasks, cpu,
+    memory bytes) without MinMember."""
+    ci = api.ClusterInfo()
+    ci.add_node(api.NodeInfo("n", allocatable=api.Resource.from_resource_list(
+        {"cpu": node_cpu, "memory": node_mem}), labels={}, max_pods=110))
+    for name, hierarchy, weights in queue_specs:
+        ci.add_queue(api.QueueInfo(name, weight=1, hierarchy=hierarchy,
+                                   hierarchy_weights=weights))
+    for pg, queue, n_tasks, cpu, mem in pg_specs:
+        job = api.JobInfo(uid=f"default/{pg}", name=pg, namespace="default",
+                          queue=queue, priority=0, min_available=0,
+                          pod_group_phase=api.PodGroupPhase.INQUEUE)
+        for i in range(n_tasks):
+            job.add_task(api.TaskInfo(
+                uid=f"default/{pg}-p{i}", name=f"{pg}-p{i}",
+                namespace="default",
+                resreq=api.Resource.from_resource_list(
+                    {"cpu": cpu, "memory": str(mem)}),
+                status=api.TaskStatus.PENDING, priority=0, task_role=""))
+        ci.add_job(job)
+    return ci
+
+
+#: the hdrf_test.go rescaling scenario (tests/test_pallas_place.py
+#: TestDynamicKeyRounds.test_hdrf_frozen_columns_guard)
+HDRF_SCENARIO = (
+    "10", str(10 * 2 ** 30),
+    [("root-sci", "root/sci", "100/50"),
+     ("root-eng-dev", "root/eng/dev", "100/50/50"),
+     ("root-eng-prod", "root/eng/prod", "100/50/50")],
+    [("pg1", "root-sci", 10, "1", 2 ** 30),
+     ("pg21", "root-eng-dev", 10, "1", 0),
+     ("pg22", "root-eng-prod", 10, "0", 2 ** 30)])

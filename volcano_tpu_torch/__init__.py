@@ -13,11 +13,14 @@ Layering:
 - ``volcano_tpu_torch.arrays``    — dense array schema, the Python packer and
                                     ``to_device``.
 - ``volcano_tpu_torch.ops``       — plain functions on tensors: predicates,
-                                    scores, selection, the allocate cycle and
-                                    the round placer with its CUDA kernel
-                                    (``csrc/round_placer.cu``).
+                                    scores, selection, fair shares, the
+                                    allocate cycle, and the two placers with
+                                    their CUDA kernels
+                                    (``csrc/round_placer.cu``,
+                                    ``csrc/dyn_placer.cu``, sharing
+                                    ``csrc/placement.cuh``).
 - ``volcano_tpu_torch.plugins``   — policy plugins contributing weights and keys.
-- ``volcano_tpu_torch.framework`` — conf and the Session.
+- ``volcano_tpu_torch.framework`` — conf, host-side extras and the Session.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 CPU tensors every kernel runs its plain PyTorch version.

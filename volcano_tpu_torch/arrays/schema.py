@@ -213,7 +213,11 @@ def snapshot_from_numpy(snap_np: Dict[str, Any], extras_np: Dict[str, Any],
     """(SnapshotArrays, AllocateExtras) on ``device`` from nested dicts of
     numpy arrays keyed by the field names — the form in which another
     producer of the same snapshot (for instance the JAX reference
-    package, through ``dataclasses.asdict``) hands over its bytes."""
+    package, through ``dataclasses.asdict``) hands over its bytes. Every
+    field of the extras comes across, the nested ``AffinityArrays`` and
+    ``HierarchyArrays`` too, plugin-filled or neutral: proportion's
+    ``queue_deserved``, drf's ``job_share`` and ``ns_share``, the
+    deadlines and the node-affinity, port and volume fields."""
     from ..ops.allocate_scan import AllocateExtras
     return (_from_dict(SnapshotArrays, snap_np, device),
             _from_dict(AllocateExtras, extras_np, device))

@@ -14,21 +14,11 @@
 //   lives in global memory: about 200 KB at N = 10240, so it stays in L2.
 //   The kernel first copies the input state to the output buffers and then
 //   updates the outputs in place.
-// - For one attempt, thread t evaluates the nodes i = t (mod BLOCK):
-//   feasibility on idle ("now") and on future idle, and the score. A block
-//   reduction finds, for each view, the highest masked score and the lowest
-//   node index at that score, the reference's tie-break.
-// - Thread 0 commits the chosen node's column, saving the column's old
-//   values first, and writes the slot outputs. __syncthreads() separates
-//   attempts.
+// - Each attempt is the shared placement step of placement.cuh: a block
+//   argmax over the node axis, then thread 0 commits the chosen node's
+//   column and writes the slot outputs. __syncthreads() separates attempts.
 // - A gang discard restores the saved old values of the (at most M) columns
-//   the section touched, newest first. Subtracting back would not do:
-//   (a - r) + r != a in float32.
-//
-// Bit-exactness with the reference: build with --fmad=false and without
-// fast math, so no multiply-add is contracted and division and sqrt are
-// IEEE; every sum over R folds in index order from 0; every constant is
-// rounded from the double the reference writes, as JAX rounds it.
+//   the section touched, newest first.
 //
 // What bounds it: not bytes and not arithmetic (a launch moves about a
 // megabyte and does some 10^8 float operations, under a microsecond of
@@ -39,49 +29,23 @@
 // (one reduction over up to 16 SMs per attempt), and keep the per-template
 // rows in shared memory instead of L2.
 
-#include <cuda_runtime.h>
+#include "placement.cuh"
 
 namespace {
 
-constexpr int BLOCK = 1024;
-constexpr int WARPS = BLOCK / 32;
-constexpr int MAX_R = 8;
-constexpr int MODE_NONE = 0;
-constexpr int MODE_ALLOCATED = 1;
-constexpr int MODE_PIPELINED = 2;
+using namespace placement;
 
 struct Args {
-  // per slot [.., KM]
-  const float* resreq;   // [R, KM]
-  const float* gpu_req;  // [1, KM] (GPU path only)
-  const int* pref;
-  const int* suffix;
-  const int* tmpl;
-  const int* grp;
-  const int* voln;
-  const int* volok;
-  const int* rev;
-  const int* active;
+  NodeEnv env;
+  SlotEnv slots;
+  const int* suffix;     // [1, KM]
+  const int* active;     // [1, KM]
   // per section [1, K]
   const int* ready0;
   const int* minav;
   const int* canb;
   const int* secact;
   const int* istgt;
-  // static node maps
-  const float* tstat;    // [P, N]
-  const float* tscore;   // [P, N]
-  const float* nascore;  // [P, N]
-  const float* blocknr;  // [1, N]
-  const float* blockall;
-  const float* bonus;
-  const float* locked;
-  const float* orfeas;   // [GR, N]
-  const float* relmp;    // [R, N]
-  const float* alloc;    // [R, N]
-  const float* cnt;      // [1, N]
-  const float* maxp;     // [1, N]
-  const float* gidle0;   // [G, N]
   // input state
   const float* idle_in;
   const float* pipe_in;
@@ -91,127 +55,22 @@ struct Args {
   int* node_o;
   int* mode_o;
   int* gpu_o;
-  float* idle;
-  float* pipe;
-  float* pods;
-  float* gpux;
-  int K, M, N, R, G, gang, pipelining;
-  float w_bin, w_least, w_most, w_bal;
+  int K, M, gang;
 };
 
-__device__ __forceinline__ float clip01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
-}
-
-// pallas_place._dyn_score for node i, in the reference's operation order
-__device__ float dyn_score(const Args& a, int i, const float* rr) {
-  const float EPS_DIV = static_cast<float>(1e-9);
-  const float OVER = static_cast<float>(1.0 + 1e-6);
-  const int N = a.N, R = a.R;
-  float alloc[MAX_R], used[MAX_R];
-  for (int r = 0; r < R; ++r) {
-    alloc[r] = a.alloc[r * N + i];
-    used[r] = alloc[r] - a.idle[r * N + i];
-  }
-  float score = 0.0f;
-  if (a.w_bin != 0.0f) {
-    float wsum = 0.0f, fsum = 0.0f;
-    bool over = false;
-    for (int r = 0; r < R; ++r) {
-      const bool app = rr[r] > 0.0f && alloc[r] > 0.0f;
-      const float frac =
-          app ? (used[r] + rr[r]) / fmaxf(alloc[r], EPS_DIV) : 0.0f;
-      over = over || frac > OVER;
-      const float w = app ? 1.0f : 0.0f;
-      wsum = wsum + w;
-      fsum = fsum + frac * w;
-    }
-    float raw = fsum / fmaxf(wsum, EPS_DIV);
-    if (over) raw = 0.0f;
-    score = score + (a.w_bin * raw) * 100.0f;
-  }
-  if (a.w_least != 0.0f) {
-    int n = 0;
-    float s = 0.0f;
-    for (int r = 0; r < R; ++r) {
-      const float cap = fmaxf(alloc[r], EPS_DIV);
-      const float free_frac = ((alloc[r] - used[r]) - rr[r]) / cap;
-      const bool counted = alloc[r] > 0.0f;
-      n += counted ? 1 : 0;
-      s = s + clip01(free_frac) * (counted ? 1.0f : 0.0f);
-    }
-    n = n > 1 ? n : 1;
-    score = score + a.w_least * ((s / static_cast<float>(n)) * 100.0f);
-  }
-  if (a.w_most != 0.0f) {
-    int n = 0;
-    float s = 0.0f;
-    for (int r = 0; r < R; ++r) {
-      const float cap = fmaxf(alloc[r], EPS_DIV);
-      const float used_frac = (used[r] + rr[r]) / cap;
-      const bool counted = alloc[r] > 0.0f;
-      n += counted ? 1 : 0;
-      s = s + clip01(used_frac) * (counted ? 1.0f : 0.0f);
-    }
-    n = n > 1 ? n : 1;
-    score = score + a.w_most * ((s / static_cast<float>(n)) * 100.0f);
-  }
-  if (a.w_bal != 0.0f) {
-    float frac[MAX_R], counted[MAX_R];
-    float nsum = 0.0f, fsum = 0.0f;
-    for (int r = 0; r < R; ++r) {
-      const float cap = fmaxf(alloc[r], EPS_DIV);
-      frac[r] = clip01((used[r] + rr[r]) / cap);
-      counted[r] = alloc[r] > 0.0f ? 1.0f : 0.0f;
-      nsum = nsum + counted[r];
-      fsum = fsum + frac[r] * counted[r];
-    }
-    const float n = fmaxf(nsum, 1.0f);
-    const float mean = fsum / n;
-    float vsum = 0.0f;
-    for (int r = 0; r < R; ++r) {
-      const float d = frac[r] - mean;
-      vsum = vsum + (d * d) * counted[r];
-    }
-    const float var = vsum / n;
-    score = score + (a.w_bal * (1.0f - sqrtf(var))) * 100.0f;
-  }
-  return score;
-}
-
-// (score, index) order of the argmax: higher score, then lower index
-__device__ __forceinline__ void take_better(float& bs, int& bi, float s,
-                                            int i) {
-  if (s > bs || (s == bs && i < bi)) {
-    bs = s;
-    bi = i;
-  }
-}
-
-__global__ void __launch_bounds__(BLOCK) round_placer_kernel(Args a) {
-  const float EPS_FIT = static_cast<float>(1e-5);
-  const float NEG = static_cast<float>(-1e30);
+__global__ void __launch_bounds__(BLOCK)
+    round_placer_kernel(const __grid_constant__ Args a) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int N = a.N, R = a.R, G = a.G, M = a.M, K = a.K;
+  const NodeEnv& e = a.env;
+  const int R = e.R, G = e.G, M = a.M, K = a.K;
   const int KM = K * M;
-  const bool gpu = G > 0;
 
   extern __shared__ float smem[];
-  int* save_node = reinterpret_cast<int*>(smem);  // [M]
-  float* save_val = smem + M;                      // [M, 2R + 1 + G]
-  const int stride = 2 * R + 1 + G;
-  __shared__ float red_s[2][WARPS];
-  __shared__ int red_i[2][WARPS];
-  __shared__ int pick_i[2];
+  const SaveArea save{reinterpret_cast<int*>(smem), smem + M, 2 * R + 1 + G};
+  __shared__ PickShared ps;
   __shared__ int sec_stopped, sec_broke, sec_nalloc, sec_npipe, sec_nsave;
 
-  for (int j = tid; j < R * N; j += BLOCK) {
-    a.idle[j] = a.idle_in[j];
-    a.pipe[j] = a.pipe_in[j];
-  }
-  for (int j = tid; j < N; j += BLOCK) a.pods[j] = a.pods_in[j];
-  for (int j = tid; j < G * N; j += BLOCK) a.gpux[j] = a.gpux_in[j];
+  copy_state(e, a.idle_in, a.pipe_in, a.pods_in, a.gpux_in);
   for (int j = tid; j < KM; j += BLOCK) {
     a.node_o[j] = -1;
     a.mode_o[j] = MODE_NONE;
@@ -235,114 +94,15 @@ __global__ void __launch_bounds__(BLOCK) round_placer_kernel(Args a) {
       const bool active =
           a.active[s] > 0 && sec_act && !sec_stopped && !sec_broke;
       if (active) {
-        const int t = a.tmpl[s];
-        const int grp = a.grp[s];
-        const int voln = a.voln[s];
-        const bool volok = a.volok[s] > 0;
-        const bool rev = a.rev[s] > 0;
-        const int pref = a.pref[s];
-        float rr[MAX_R];
-        for (int r = 0; r < R; ++r) rr[r] = a.resreq[r * KM + s];
-        const float gr = gpu ? a.gpu_req[s] : 0.0f;
-        const float grm = gr - EPS_FIT;
-
-        const float lowest = __int_as_float(0xff800000);  // -inf
-        float best[2] = {lowest, lowest};
-        int bidx[2] = {N, N};
-        bool found[2] = {false, false};
-        for (int i = tid; i < N; i += BLOCK) {
-          bool sf = a.tstat[t * N + i] > 0.0f;
-          sf = sf && !(a.blocknr[i] > 0.0f && !rev) && !(a.blockall[i] > 0.0f);
-          if (grp >= 0) sf = sf && a.orfeas[grp * N + i] > 0.0f;
-          sf = sf && volok && (voln < 0 || i == voln);
-          sf = sf && (!(a.locked[i] > 0.0f) || is_tgt);
-          bool shared = sf && (a.cnt[i] + a.pods[i]) < a.maxp[i];
-          if (gpu && !(gr <= 0.0f)) {
-            bool any = false;
-            for (int g = 0; g < G; ++g)
-              any = any || (a.gidle0[g * N + i] - a.gpux[g * N + i]) >= grm;
-            shared = shared && any;
-          }
-          bool fit_now = true, fit_fut = true;
-          for (int r = 0; r < R; ++r) {
-            const float idle_r = a.idle[r * N + i];
-            const float fut_r =
-                fmaxf((idle_r + a.relmp[r * N + i]) - a.pipe[r * N + i], 0.0f);
-            fit_now = fit_now && rr[r] <= idle_r + EPS_FIT;
-            fit_fut = fit_fut && rr[r] <= fut_r + EPS_FIT;
-          }
-          const bool feas[2] = {shared && fit_now, shared && fit_fut};
-          float sc = NEG;
-          if (feas[0] || feas[1]) {
-            sc = dyn_score(a, i, rr);
-            sc = sc + a.tscore[t * N + i];
-            sc = sc + (a.nascore[t * N + i] + (rev ? a.bonus[i] : 0.0f));
-            sc = sc + ((pref >= 0 && i == pref) ? 100.0f : 0.0f);
-          }
-          for (int v = 0; v < 2; ++v) {
-            take_better(best[v], bidx[v], feas[v] ? sc : NEG, i);
-            found[v] = found[v] || feas[v];
-          }
-        }
-        // block argmax of both views
-        for (int v = 0; v < 2; ++v) {
-          for (int off = 16; off > 0; off >>= 1) {
-            const float os = __shfl_down_sync(0xffffffffu, best[v], off);
-            const int oi = __shfl_down_sync(0xffffffffu, bidx[v], off);
-            take_better(best[v], bidx[v], os, oi);
-          }
-          if (lane == 0) {
-            red_s[v][warp] = best[v];
-            red_i[v][warp] = bidx[v];
-          }
-        }
-        const bool any_now = __syncthreads_or(found[0]);
-        const bool any_fut = __syncthreads_or(found[1]);
-        if (warp < 2) {
-          const int v = warp;
-          float bs = red_s[v][lane];
-          int bi = red_i[v][lane];
-          for (int off = 16; off > 0; off >>= 1) {
-            const float os = __shfl_down_sync(0xffffffffu, bs, off);
-            const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-            take_better(bs, bi, os, oi);
-          }
-          if (lane == 0) pick_i[v] = bi;
-        }
-        __syncthreads();
-
+        const Task t = load_task(a.slots, e, s);
+        const Pick pk = block_pick(e, t, is_tgt, ps);
         if (tid == 0) {
-          const bool do_alloc = any_now;
-          const bool do_pipe = !any_now && any_fut && a.pipelining;
+          const bool do_alloc = pk.any_now;
+          const bool do_pipe = !pk.any_now && pk.any_fut && e.pipelining;
           const bool placed = do_alloc || do_pipe;
           if (placed) {
-            const int node = do_alloc ? pick_i[0] : pick_i[1];
-            const int sv = sec_nsave++;
-            float* col = save_val + sv * stride;
-            save_node[sv] = node;
-            for (int r = 0; r < R; ++r) {
-              col[r] = a.idle[r * N + node];
-              col[R + r] = a.pipe[r * N + node];
-            }
-            col[2 * R] = a.pods[node];
-            for (int g = 0; g < G; ++g) col[2 * R + 1 + g] = a.gpux[g * N + node];
-            if (do_alloc) {
-              for (int r = 0; r < R; ++r)
-                a.idle[r * N + node] = a.idle[r * N + node] - rr[r];
-            } else {
-              for (int r = 0; r < R; ++r)
-                a.pipe[r * N + node] = a.pipe[r * N + node] + rr[r];
-            }
-            a.pods[node] = a.pods[node] + 1.0f;
-            int card = -1;
-            if (gpu && gr > 0.0f) {
-              // lowest fitting card on the chosen node (pick_gpu_row)
-              for (int g = 0; g < G && card < 0; ++g)
-                if ((a.gidle0[g * N + node] - a.gpux[g * N + node]) >= grm)
-                  card = g;
-              if (card >= 0)
-                a.gpux[card * N + node] = a.gpux[card * N + node] + gr;
-            }
+            const int node = do_alloc ? pk.node_now : pk.node_fut;
+            const int card = commit(e, t, node, do_alloc, save, sec_nsave++);
             a.node_o[s] = node;
             a.mode_o[s] = do_alloc ? MODE_ALLOCATED : MODE_PIPELINED;
             a.gpu_o[s] = card;
@@ -365,16 +125,7 @@ __global__ void __launch_bounds__(BLOCK) round_placer_kernel(Args a) {
       const bool pipelined =
           (a.ready0[k] + sec_nalloc + sec_npipe) >= a.minav[k];
       if (!(ready || pipelined)) {
-        for (int sv = sec_nsave - 1; sv >= 0; --sv) {
-          const int node = save_node[sv];
-          const float* col = save_val + sv * stride;
-          for (int r = 0; r < R; ++r) {
-            a.idle[r * N + node] = col[r];
-            a.pipe[r * N + node] = col[R + r];
-          }
-          a.pods[node] = col[2 * R];
-          for (int g = 0; g < G; ++g) a.gpux[g * N + node] = col[2 * R + 1 + g];
-        }
+        restore(e, save, sec_nsave);
         for (int j = k * M; j < (k + 1) * M; ++j) {
           a.node_o[j] = -1;
           a.mode_o[j] = MODE_NONE;
@@ -404,14 +155,31 @@ extern "C" int round_placer_launch(
     float w_least, float w_most, float w_bal, void* stream) {
   if (R < 1 || R > MAX_R || K < 1 || M < 1 || N < 1 || G < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{resreq, gpu_req, pref,    suffix,  tmpl,    grp,     voln,
-         volok,  rev,     active,  ready0,  minav,   canb,    secact,
-         istgt,  tstat,   tscore,  nascore, blocknr, blockall, bonus,
-         locked, orfeas,  relmp,   alloc,   cnt,     maxp,    gidle0,
-         idle_in, pipe_in, pods_in, gpux_in, node_o, mode_o,  gpu_o,
-         idle,   pipe,    pods,    gpux,    K,       M,       N,
-         R,      G,       gang,    pipelining, w_bin, w_least, w_most,
-         w_bal};
+  Args a;
+  a.env = NodeEnv{tstat, tscore, nascore, blocknr, blockall, bonus,
+                  locked, orfeas, relmp,   alloc,   cnt,      maxp,
+                  gidle0, idle,   pipe,    pods,    gpux,     N,
+                  R,      G,      pipelining, w_bin, w_least, w_most,
+                  w_bal};
+  a.slots = SlotEnv{resreq, gpu_req, pref, tmpl, grp, voln, volok, rev,
+                    K * M};
+  a.suffix = suffix;
+  a.active = active;
+  a.ready0 = ready0;
+  a.minav = minav;
+  a.canb = canb;
+  a.secact = secact;
+  a.istgt = istgt;
+  a.idle_in = idle_in;
+  a.pipe_in = pipe_in;
+  a.pods_in = pods_in;
+  a.gpux_in = gpux_in;
+  a.node_o = node_o;
+  a.mode_o = mode_o;
+  a.gpu_o = gpu_o;
+  a.K = K;
+  a.M = M;
+  a.gang = gang;
   const size_t smem = static_cast<size_t>(M) * (2 * R + G + 2) * sizeof(float);
   round_placer_kernel<<<1, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -31,7 +31,7 @@ from ..api import ClusterInfo, PodGroupPhase, TaskStatus, gpu_request_of
 from ..api.resource import Resource
 from ..arrays import pack, to_device
 from ..arrays.affinity import AffinityArrays
-from ..arrays.hierarchy import HierarchyArrays
+from ..arrays.hierarchy import build_hierarchy
 from ..ops.allocate_scan import (MODE_ALLOCATED, AllocateConfig,
                                  AllocateExtras, derive_batching,
                                  make_allocate_cycle, unpack_decisions)
@@ -89,10 +89,12 @@ class Session:
         T = self.snap.tasks.status.shape[0]
         Q = self.snap.queues.weight.shape[0]
         J = self.snap.jobs.valid.shape[0]
-        # no inter-pod terms and a root-only hdrf tree: their encoders come
-        # with the predicates and drf plugins (ROADMAP)
+        # no inter-pod terms: their encoder comes with pod affinity
+        # (ROADMAP queue 1 item 4)
         self.affinity = AffinityArrays.neutral(N, T)
-        self.hierarchy = HierarchyArrays.neutral(Q, J)
+        # hdrf tree topology (the drf plugin's hierarchicalRoot,
+        # drf.go:128-147), static per snapshot
+        self.hierarchy = build_hierarchy(self.cluster, self.maps, Q, J)
         # uid -> (job, task) readout index, built lazily on first use
         self._task_lookup_cache = None
         # packed-order (job, task) object pairs for _bulk_bind, built and
@@ -178,18 +180,67 @@ class Session:
         # (predicates.go:196-200), compiled in only when terms exist
         enable_aff = (self.affinity.has_terms
                       and self.plugin("predicates") is not None)
+        # NodePorts likewise (predicates.go:191): only when a pending task
+        # declares hostPorts
+        enable_ports = (self.plugin("predicates") is not None
+                        and any(t.host_ports
+                                for job in self.cluster.jobs.values()
+                                for t in job.tasks.values()))
         if enable_aff and "pod_affinity_weight" not in provided:
             weights["pod_affinity_weight"] = 1.0
+        drf, tdm, sla = (self.plugin(n) for n in ("drf", "tdm", "sla"))
         return AllocateConfig(telemetry=bool(self.conf.telemetry),
                               wave_width=int(self.conf.wave_width),
                               enable_gang=self.plugin("gang") is not None,
                               enable_pod_affinity=enable_aff,
+                              enable_host_ports=enable_ports,
+                              enable_hdrf=(drf is not None
+                                           and drf.option.enabled_hierarchy),
+                              drf_job_order=(drf is not None
+                                             and drf.option.enabled_job_order),
+                              drf_ns_order=(drf is not None and drf.option
+                                            .enabled_namespace_order),
+                              tdm_job_order=(tdm is not None
+                                             and tdm.option.enabled_job_order),
+                              sla_job_order=(sla is not None
+                                             and sla.option.enabled_job_order),
                               **weights)
+
+    def _port_volume_extras(self, extras: AllocateExtras) -> None:
+        """Host-side NodePorts + volume-binding inputs (the predicates
+        plugin's nodePortFilter, predicates.go:191, and the
+        defaultVolumeBinder seam, cache.go:240-272)."""
+        from .host_extras import (apply_port_volume_sections,
+                                  port_volume_sections)
+        sec = port_volume_sections(self.cluster, self.maps.node_index,
+                                   self.maps.task_index)
+        apply_port_volume_sections(extras, sec, self.snap)
+
+    def _node_affinity_extras(self, extras: AllocateExtras) -> None:
+        """Node-affinity OR groups (predicates) and the f32[P, N] preferred
+        score per predicate template: matched term weights x
+        nodeaffinity.weight (nodeorder.go:255-266)."""
+        from .host_extras import (apply_affinity_sections,
+                                  node_affinity_sections)
+        no = self.plugin("nodeorder")
+        w = no.arg_float("nodeaffinity.weight", 1.0) if no is not None else 0.0
+        do_required = self.plugin("predicates") is not None
+        if not (bool(w) or do_required):
+            return
+        sec = node_affinity_sections(self.cluster, self.maps.node_names,
+                                     self.maps.task_index, w, do_required)
+        apply_affinity_sections(extras, sec, self.snap,
+                                len(self.maps.node_names))
 
     def allocate_extras(self) -> AllocateExtras:
         extras = AllocateExtras.neutral(self.snap)
         extras.affinity = self.affinity
         extras.hierarchy = self.hierarchy
+        if self.plugin("predicates") is not None:
+            self._port_volume_extras(extras)
+        if (self.plugin("nodeorder") is not None
+                or self.plugin("predicates") is not None):
+            self._node_affinity_extras(extras)
         for p in self.plugins:
             deserved = p.queue_deserved(self)
             if deserved is not None:
@@ -200,6 +251,9 @@ class Session:
             ns = p.namespace_share(self)
             if ns is not None:
                 extras.ns_share = np.asarray(ns, np.float32)
+            if hasattr(p, "job_deadline"):
+                extras.job_deadline = np.asarray(p.job_deadline(self),
+                                                 np.float32)
         return extras
 
     def _derived_allocate_inputs(self):

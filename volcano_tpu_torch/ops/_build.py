@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``. Nothing here includes PyTorch's
 headers, so a build takes seconds. The library goes to ``_build/`` in the
 package (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source is rebuilt and a built one is reused.
+flags, so an edited source or shared header (``csrc/*.cuh``) is rebuilt
+and a built one is reused.
 
 ``nvcc`` is looked up on ``PATH``, then under ``$CUDA_HOME`` and
 ``/usr/local/cuda``. Nothing is built when a module is imported: the first
@@ -45,8 +46,12 @@ def nvcc() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    for path in [src] + sorted(os.path.join(CSRC, h) for h in os.listdir(CSRC)
+                               if h.endswith(".cuh")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = f"lib{name}-{digest.hexdigest()[:12]}"
     return (src, os.path.join(BUILD_DIR, stem + ".so"),
             os.path.join(BUILD_DIR, stem + ".log"))

@@ -1,5 +1,5 @@
 """The allocate action as one pass over device tensors (PyTorch port of
-``volcano_tpu/ops/allocate_scan.py``, static-key batched branch).
+``volcano_tpu/ops/allocate_scan.py``, its batched branches).
 
 The reference's dominant pass (pkg/scheduler/actions/allocate/allocate.go
 :43-281 with the Statement commit/discard transaction, framework/statement.go
@@ -9,16 +9,22 @@ PrioritizeNodes + SelectBestNode become a feasibility-mask -> score ->
 argmax step over the node axis; gang JobReady / JobPipelined / Discard
 commit or restore the section's capacity.
 
-This slice carries the static-key path: when no ordering key can move under
-a commit (no drf / hdrf ordering and no finite proportion ``deserved``,
-:func:`derive_batching`), the next K sequential pops are the K
-lexicographically smallest eligible jobs now, and one round placer call
-(``ops/round_placer.py``) places all K sections. Each round pops K jobs,
-launches the placer once and folds its outputs back into the per-job state;
-the loop runs until no job is eligible, with one host readback per round.
-The round placer runs its CUDA kernel on CUDA tensors and its plain
-version on CPU tensors. Decisions are bit-identical to the reference's scan
-path, its Pallas kernel and its numpy oracle.
+Two paths, chosen by :func:`derive_batching`:
+
+- static keys (no drf / hdrf ordering and no finite proportion
+  ``deserved``): the next K sequential pops are the K lexicographically
+  smallest eligible jobs now, and one round placer call
+  (``ops/round_placer.py``) places all K sections;
+- dynamic keys (``batch_rounds`` > 0): the K smallest eligible jobs are the
+  candidates of one dynamic-key placer call (``ops/dyn_placer.py``), which
+  pops up to ``batch_rounds`` jobs, recomputing the keys after every
+  commit, and stops when the true next pop is not a candidate.
+
+Each round launches one placer and folds its outputs back into the per-job
+state; the loop runs until no job is eligible, with one host readback per
+round. The placers run their CUDA kernels on CUDA tensors and their plain
+versions on CPU tensors. Decisions are bit-identical to the reference's
+scan path and its Pallas kernels.
 
 Documented divergence (shared with the reference): score ties break to the
 lowest node index instead of rand.Intn (scheduler_helper.go:227).
@@ -36,9 +42,11 @@ import torch
 from ..arrays.affinity import AffinityArrays
 from ..arrays.hierarchy import HierarchyArrays
 from ..arrays.schema import SnapshotArrays
+from . import dyn_placer as dp
 from . import predicates as P
 from . import round_placer
 from . import scoring as S
+from .fairshare import drf_job_shares, hdrf_level_keys, namespace_shares
 from .round_placer import MODE_ALLOCATED, MODE_NONE, MODE_PIPELINED
 from .select import lex_argmin
 
@@ -118,7 +126,7 @@ class AllocateConfig:
     max_rounds: Optional[int] = None     # cap on outer job iterations
     #: jobs per placer launch on the static-key path (derive_batching)
     batch_jobs: int = 1
-    #: in-kernel pops per launch on the dynamic-key path (not ported yet)
+    #: pops per launch on the dynamic-key path (derive_batching)
     batch_rounds: int = 0
     #: shared-GPU predicate + card accounting (gpu.go:41-56); the session
     #: turns it off when no task requests GPU memory
@@ -231,39 +239,96 @@ def _check_supported(cfg: AllocateConfig) -> None:
     """Raise for the configurations this slice of the port does not carry,
     naming the ROADMAP item that ports each."""
     todo = [
-        (cfg.batch_rounds > 0, "the dynamic-key path (batch_rounds > 0: drf/"
-         "hdrf ordering or a finite proportion deserved)",
-         "ROADMAP queue 1 item 1, the dynamic-key kernel"),
         (cfg.enable_pod_affinity, "enable_pod_affinity",
-         "ROADMAP queue 1 item 4, pod affinity"),
+         "ROADMAP queue 1 item 4, pod affinity and host ports"),
         (cfg.enable_host_ports, "enable_host_ports",
-         "ROADMAP queue 1 item 3, host_extras / predicates / nodeorder"),
+         "ROADMAP queue 1 item 4, pod affinity and host ports"),
         (cfg.telemetry, "telemetry", "ROADMAP queue 1 item 7, telemetry "
          "and wavefront"),
         (cfg.wave_width > 1, "wave_width > 1", "ROADMAP queue 1 item 7, "
          "telemetry and wavefront"),
-        (cfg.drf_job_order or cfg.drf_ns_order or cfg.enable_hdrf,
-         "drf/hdrf dynamic ordering",
-         "ROADMAP queue 1 item 1, the dynamic-key kernel"),
     ]
     for hit, what, item in todo:
         if hit:
             raise NotImplementedError(
                 f"{what} is not ported to volcano_tpu_torch yet ({item})")
+    # static-key batching cannot carry dynamic ordering keys: their
+    # recompute lives only in the dynamic-key placer
+    if (cfg.batch_jobs > 1 and not cfg.batch_rounds
+            and (cfg.drf_job_order or cfg.drf_ns_order or cfg.enable_hdrf)):
+        raise ValueError(
+            "batch_jobs > 1 on the static-keys path requires static "
+            "ordering keys (no drf/hdrf dynamic ordering); use "
+            "batch_rounds (derive_batching sets it) for dynamic keys")
 
 
-def make_allocate_cycle(cfg: AllocateConfig, placer=None):
+def _dyn_static_args(cfg, snap, extras, keys_static):
+    """The per-cycle job rows of the dynamic-key placer: ``head`` (the
+    static key columns, in the order the key plan reads them), ``jobs``
+    (queue and namespace maps, gang, eligibility and fairness inputs, in
+    the placer's argument order) and ``tgt``."""
+    jobs = snap.jobs
+    f32, i32 = torch.float32, torch.int32
+    dev = jobs.valid.device
+    Q = extras.queue_deserved.shape[0]
+    S = extras.ns_share.shape[0]
+    job_ns = jobs.namespace.long()
+    rows = []
+    if not cfg.drf_ns_order:
+        rows.append(extras.ns_share[job_ns])
+    rows += [jobs.namespace.to(f32), jobs.queue.to(f32),
+             -jobs.priority.to(f32)]
+    if cfg.tdm_job_order:
+        rows.append(jobs.preemptable.to(f32))
+    if cfg.sla_job_order:
+        rows.append(extras.job_deadline)
+    if not cfg.drf_job_order:
+        rows.append(extras.job_share)
+    rows.append(jobs.creation_rank.to(f32))
+    mid = [jobs.queue.to(i32)[None, :],
+           (torch.arange(Q, device=dev)[:, None]
+            == jobs.queue[None, :]).to(f32)]
+    if cfg.drf_ns_order:
+        nsm = torch.arange(S, device=dev)[:, None] == jobs.namespace[None, :]
+        mid += [nsm.to(f32), (nsm & jobs.valid[None, :]).to(f32),
+                snap.namespace_weight.to(f32)[None, :].contiguous()]
+    # re-pop fusion flag per job: static keys and no finite deserved on
+    # the job's queue
+    canb = ~torch.isfinite(extras.queue_deserved[jobs.queue.long()]).any(1) \
+        & keys_static
+    mid += [jobs.min_available.to(i32)[None, :],
+            jobs.ready_num.to(i32)[None, :],
+            jobs.n_pending.to(i32)[None, :],
+            (jobs.valid & jobs.schedulable).to(i32)[None, :],
+            jobs.valid.to(f32)[None, :],
+            canb.to(i32)[None, :],
+            extras.queue_deserved.to(f32).contiguous(),
+            extras.queue_share_extra.to(f32)[:, None].contiguous(),
+            snap.cluster_capacity.to(f32)[:, None].contiguous()]
+    tgt = torch.full((1, 1), int(extras.target_job), dtype=i32, device=dev)
+    return dict(head=[torch.stack(rows).to(f32).contiguous()], jobs=mid,
+                tgt=tgt)
+
+
+def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None):
     """Build the allocate pass for a static config.
 
     Returned signature: ``allocate(snap, extras) -> AllocateResult`` with
     ``snap``/``extras`` dataclass trees of tensors on one device
-    (``arrays.schema.to_device``). ``placer`` replaces the round placer
-    (``round_placer.round_place``, same signature); callers use it to run
-    the plain version on the card or to watch the launches.
+    (``arrays.schema.to_device``). ``placer`` replaces the static-key round
+    placer (``round_placer.round_place``) and ``dyn_placer`` the
+    dynamic-key one (``dyn_placer.dyn_place``), each with the same
+    signature; callers use them to run the plain versions on the card or
+    to watch the launches.
     """
     _check_supported(cfg)
     place = placer or round_placer.round_place
+    place_dyn = dyn_placer or dp.dyn_place
     K = max(1, int(cfg.batch_jobs))
+    KP = max(0, int(cfg.batch_rounds))
+    dyn = KP > 0
+    keys_static = not (cfg.drf_job_order or cfg.drf_ns_order
+                       or cfg.enable_hdrf)
     f32, i32 = torch.float32, torch.int32
 
     def allocate(snap: SnapshotArrays,
@@ -311,7 +376,7 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None):
         tbl = jobs.task_table.clamp_min(0).long()
         slot_ok = (jobs.task_table >= 0)[:, :, None]
         jobs_min_req = torch.where(slot_ok, tasks.resreq[tbl],
-                                   torch.tensor(float("inf"), device=dev)
+                                   torch.full((), float("inf"), device=dev)
                                    ).min(dim=1).values              # [J, R]
 
         # ---- loop state; scatters with no target land in a sentinel row
@@ -340,10 +405,10 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None):
         slots = torch.arange(M, dtype=i32, device=dev)
         jidx = torch.arange(J, dtype=i32, device=dev)
         des_finite = torch.isfinite(queue_deserved)
-        # static ordering keys: everything but ready_now and qshare
-        ns_key = extras.ns_share[jobs.namespace.long()]
         job_q = jobs.queue.long()
+        job_ns = jobs.namespace.long()
         neg_prio = -jobs.priority.to(f32)
+        total_cap = snap.cluster_capacity
 
         def eligible():
             # overused queues are skipped (proportion.Overused,
@@ -352,10 +417,62 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None):
             return (jobs.valid & jobs.schedulable & ~job_done[:J]
                     & (job_cursor[:J] < jobs.n_pending) & ~overused[job_q])
 
+        def order_keys():
+            """The pop's ordering keys, most significant first (the nested
+            namespace -> queue -> job priority queues), with the drf shares
+            and hdrf columns recomputed from the live allocations, as the
+            plugins' event handlers would (drf.go:511-536); and the hdrf
+            columns per queue (None without hdrf)."""
+            # queue share: max over dims of allocated / deserved
+            # (proportion queueOrderFn, proportion.go:198-212)
+            qshare = torch.where(
+                des_finite & (queue_deserved > 0),
+                queue_allocated[:Q] / queue_deserved.clamp_min(_EPS_DIV),
+                torch.zeros_like(queue_deserved)).max(-1).values \
+                + extras.queue_share_extra
+            live = job_alloc_dyn[:J]
+            ns_share = (namespace_shares(live, jobs.namespace, jobs.valid,
+                                         snap.namespace_weight, total_cap)
+                        if cfg.drf_ns_order else extras.ns_share)
+            job_share = (drf_job_shares(live, total_cap, jobs.valid)
+                         if cfg.drf_job_order else extras.job_share)
+            keys = [ns_share[job_ns], jobs.namespace.to(f32), qshare[job_q]]
+            hcols = None
+            if cfg.enable_hdrf:
+                # hdrf compareQueues walk as lexicographic level columns
+                # (drf.go:182-218)
+                hcols = hdrf_level_keys(extras.hierarchy, live,
+                                        jobs.total_request, jobs.valid,
+                                        total_cap)
+                keys += [hcols[:, c][job_q] for c in range(hcols.shape[1])]
+            keys += [jobs.queue.to(f32), neg_prio]
+            if cfg.tdm_job_order:
+                keys.append(jobs.preemptable.to(f32))
+            if cfg.sla_job_order:
+                keys.append(extras.job_deadline)
+            ready_dyn = jobs.ready_num + job_alloc_count[:J]
+            ready_now = (ready_dyn >= jobs.min_available) \
+                & (jobs.min_available > 0)
+            keys += [ready_now.to(f32), job_share, jobs.creation_rank.to(f32)]
+            return keys, hcols
+
+        if dyn:
+            dyn_static = _dyn_static_args(cfg, snap, extras, keys_static)
+
         rounds = 0
+        launched = False
+        last_pops = torch.zeros((), dtype=i32, device=dev)
         while True:
             elig = eligible()
-            go, prog = torch.stack([elig.any(), progressed]).tolist()
+            go, prog, pops = torch.stack([
+                elig.any().to(i32), progressed.to(i32), last_pops]).tolist()
+            if launched:
+                # a dyn launch counts as its pops, at least one: pop 0 is
+                # forced, so every launch moves the bound
+                rounds += max(pops, 1)
+                dp.pops += pops
+                dp.early_stops += pops < kp_req
+                launched = False
             if not go or rounds >= max_rounds:
                 break
             if prog:
@@ -366,29 +483,12 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None):
                 fut_t = (idle + relmp_t - pipe).clamp_min(0.0)
                 bound = torch.where(node_live[None, :],
                                     torch.maximum(idle, fut_t),
-                                    torch.tensor(float("-inf"), device=dev)
+                                    torch.full((), float("-inf"), device=dev)
                                     ).max(dim=1).values             # [R]
                 give_up = elig & (jobs_min_req > bound + _EPS_FIT).any(-1)
 
             # ---- job selection: lexicographic pop of ns->queue->job PQs
-            qshare = torch.where(
-                des_finite & (queue_deserved > 0),
-                queue_allocated[:Q] / queue_deserved.clamp_min(_EPS_DIV),
-                torch.zeros_like(queue_deserved)).max(-1).values \
-                + extras.queue_share_extra
-            ready_dyn = jobs.ready_num + job_alloc_count[:J]
-            ready_now = (ready_dyn >= jobs.min_available) \
-                & (jobs.min_available > 0)
-            keys = [ns_key, jobs.namespace.to(f32), qshare[job_q],
-                    jobs.queue.to(f32), neg_prio]
-            if cfg.tdm_job_order:
-                keys.append(jobs.preemptable.to(f32))
-            if cfg.sla_job_order:
-                keys.append(extras.job_deadline)
-            keys += [ready_now.to(f32), extras.job_share,
-                     jobs.creation_rank.to(f32)]
-
-            # ---- K batched pops, one placer launch ----------------------
+            keys, hcols = order_keys()
             jis = []
             elig_k = elig
             for _ in range(K):
@@ -397,10 +497,91 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None):
                 jis.append(ji_k)
                 elig_k = elig_k & (jidx != ji_k)
             ji_vec = torch.stack(jis).to(i32)                        # [K]
-            secact = ji_vec >= 0
             jsafe = ji_vec.clamp_min(0).long()
             task_ids = jobs.task_table[jsafe]                        # [K, M]
             tcl = task_ids.clamp_min(0).long()
+            flat_ids = tcl.reshape(K * M)
+
+            def slot_args(suffix_after):
+                """The placers' leading per-slot rows."""
+                rows = [tasks.resreq[flat_ids].T.contiguous()]
+                if cfg.enable_gpu:
+                    rows.append(tasks.gpu_request[flat_ids][None, :])
+                return rows + [
+                    extras.task_pref_node[flat_ids][None, :],
+                    suffix_after.reshape(1, K * M),
+                    tasks.template[flat_ids].clamp_min(0)[None, :],
+                    extras.task_or_group[flat_ids][None, :],
+                    extras.task_volume_node[flat_ids][None, :],
+                    extras.task_volume_ok[flat_ids].to(i32)[None, :],
+                    extras.task_revocable[flat_ids].to(i32)[None, :]]
+
+            if dyn:
+                # ---- dynamic-key path: up to KP pops in one launch over
+                # the K candidates, keys recomputed after every commit; the
+                # launch stops when the true next pop is not a candidate
+                cslot = torch.full((J + 1,), -1, dtype=i32, device=dev)
+                cslot[torch.where(ji_vec >= 0, jsafe, J)] = torch.arange(
+                    K, dtype=i32, device=dev)
+                tid_ok = task_ids >= 0
+                nbe = ~tasks.best_effort[tcl]
+                # cursor-independent suffix: real non-best-effort slots
+                # strictly after m
+                nbreal = (tid_ok & nbe).to(i32)
+                args = slot_args(nbreal.flip(1).cumsum(1, dtype=i32).flip(1)
+                                 - nbreal) + [
+                    tid_ok.to(i32).reshape(1, K * M),
+                    nbe.to(i32).reshape(1, K * M),
+                    ji_vec[None, :], cslot[None, :J]]
+                args += dyn_static["head"]
+                if cfg.enable_hdrf:
+                    # frozen per-launch hdrf columns (guarded in the placer)
+                    args.append(hcols.T[:, job_q].contiguous())
+                kp_req = min(KP, max_rounds - rounds)
+                args += dyn_static["jobs"] + [
+                    torch.full((1, 1), kp_req, dtype=i32, device=dev),
+                    dyn_static["tgt"]]
+                args += node_env
+                args += [idle, pipe, pods]
+                if cfg.enable_gpu:
+                    args.append(gpux)
+                args += [
+                    (job_done[:J] | give_up).to(i32)[None, :],
+                    (job_popped[:J] | give_up).to(i32)[None, :],
+                    job_ready[:J].to(i32)[None, :],
+                    job_pipelined[:J].to(i32)[None, :],
+                    job_cursor[None, :J].contiguous(),
+                    job_alloc_count[None, :J].contiguous(),
+                    job_alloc_dyn[:J].T.contiguous(),
+                    queue_allocated[:Q].contiguous()]
+                outs = list(place_dyn(cfg, K, KP, M, args))
+                node_s, mode_s, gpu_s = outs[0][0], outs[1][0], outs[2][0]
+                idle, pipe, pods = outs[3:6]
+                if cfg.enable_gpu:
+                    gpux = outs[6]
+                (done_o, popped_o, ready_o, pipe_o, cursor_o, acount_o,
+                 jalloc_o, qalloc_o, pops_o, prog_o) = outs[-10:]
+                placed_m = mode_s.reshape(K, M) != MODE_NONE
+                wflat = torch.where(tid_ok & placed_m, task_ids,
+                                    T).reshape(K * M).long()
+                task_node[wflat] = node_s
+                task_mode[wflat] = mode_s
+                task_gpu[wflat] = gpu_s
+                job_done[:J] = done_o[0] > 0
+                job_popped[:J] = popped_o[0] > 0
+                job_ready[:J] = ready_o[0] > 0
+                job_pipelined[:J] = pipe_o[0] > 0
+                job_cursor[:J] = cursor_o[0]
+                job_alloc_count[:J] = acount_o[0]
+                job_alloc_dyn[:J] = jalloc_o.T
+                queue_allocated[:Q] = qalloc_o
+                last_pops = pops_o[0, 0]
+                launched = True
+                progressed = prog_o[0, 0] > 0
+                continue
+
+            # ---- K batched pops, one placer launch ----------------------
+            secact = ji_vec >= 0
             curs = job_cursor[jsafe]
             open_slot = (task_ids >= 0) & (slots[None, :] >= curs[:, None])
             nb = open_slot & ~tasks.best_effort[tcl]
@@ -409,8 +590,9 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None):
             suffix_after = rc - nb_i
             ready0_vec = jobs.ready_num[jsafe] + job_alloc_count[jsafe]
             minav_vec = jobs.min_available[jsafe]
-            # any finite deserved (including 0) disqualifies re-pop fusion
-            canb_vec = ~des_finite[job_q[jsafe]].any(1)
+            # any finite deserved (including 0) disqualifies re-pop fusion:
+            # a commit can flip the queue overused; so do dynamic keys
+            canb_vec = ~des_finite[job_q[jsafe]].any(1) & keys_static
             if K > 1:
                 # section k runs only if every earlier section's commits are
                 # provably inert to ordering and eligibility
@@ -420,18 +602,7 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None):
                 secact = secact & prefix_ok
             istgt = ji_vec == target_job
 
-            flat_ids = tcl.reshape(K * M)
-            args = [tasks.resreq[flat_ids].T.contiguous()]
-            if cfg.enable_gpu:
-                args.append(tasks.gpu_request[flat_ids][None, :])
-            args += [
-                extras.task_pref_node[flat_ids][None, :],
-                suffix_after.reshape(1, K * M),
-                tasks.template[flat_ids].clamp_min(0)[None, :],
-                extras.task_or_group[flat_ids][None, :],
-                extras.task_volume_node[flat_ids][None, :],
-                extras.task_volume_ok[flat_ids].to(i32)[None, :],
-                extras.task_revocable[flat_ids].to(i32)[None, :],
+            args = slot_args(suffix_after) + [
                 nb_i.reshape(1, K * M),
                 ready0_vec[None, :], minav_vec[None, :],
                 canb_vec.to(i32)[None, :],

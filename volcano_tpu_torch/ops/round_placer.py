@@ -176,6 +176,95 @@ def _pick(feas, score, iota):
     return idx.min(), feas.any()
 
 
+class SlotLists(NamedTuple):
+    """The per-slot integer rows of a launch as host lists (one readback),
+    and the GPU requests when the GPU path is on."""
+    pref: List[int]
+    tmpl: List[int]
+    grp: List[int]
+    voln: List[int]
+    volok: List[int]
+    rev: List[int]
+    gpu_req: Optional[List[float]]
+
+    @classmethod
+    def of(cls, a) -> "SlotLists":
+        rows = torch.cat([a.pref, a.tmpl, a.grp, a.voln, a.volok,
+                          a.rev]).tolist()
+        return cls(*rows, a.gpu_req[0].tolist() if a.gpu_req is not None
+                   else None)
+
+
+def place_one(cfg, w, a, sl: SlotLists, s: int, is_tgt: bool, state,
+              iota, stats=None):
+    """One placement attempt of slot ``s``: the plain version of
+    ``pallas_place._make_attempt`` (feasibility, score, lowest-index argmax
+    of both views, commit). ``a`` holds the slot rows and node maps under
+    the names of :class:`PlacerArgs`; ``state`` = [idle, pipe, pods, gpux]
+    is updated in place. Returns (node, mode, card): (-1, MODE_NONE, -1)
+    when no node fits now or, with pipelining, in the future."""
+    idle, pipe, pods, gpux = state
+    gpu = bool(cfg.enable_gpu)
+    if stats is not None:
+        stats["attempts"] = stats.get("attempts", 0) + 1
+    rr = a.resreq[:, s:s + 1]                                      # [R, 1]
+    t = sl.tmpl[s]
+    sfeas = a.tstat[t:t + 1] > 0
+    if not sl.rev[s] > 0:
+        sfeas = sfeas & ~(a.blocknr > 0)
+    sfeas = sfeas & ~(a.blockall > 0)
+    if sl.grp[s] >= 0:
+        sfeas = sfeas & (a.orfeas[sl.grp[s]:sl.grp[s] + 1] > 0)
+    if not sl.volok[s] > 0:
+        sfeas = torch.zeros_like(sfeas)
+    if sl.voln[s] >= 0:
+        sfeas = sfeas & (iota == sl.voln[s])
+    if not is_tgt:
+        sfeas = sfeas & ~(a.locked > 0)
+
+    future = (idle + a.relmp - pipe).clamp_min(0.0)
+    shared = sfeas & ((a.cnt + pods) < a.maxp)
+    if gpu:
+        gr = sl.gpu_req[s]
+        gidle = a.gidle0 - gpux
+        grm = float(np.float32(gr) - np.float32(_EPS_FIT))
+        if not gr <= 0:
+            shared = shared & (gidle >= grm).any(0, keepdim=True)
+    fit_now = (rr <= idle + _EPS_FIT).all(0, keepdim=True)
+    fit_fut = (rr <= future + _EPS_FIT).all(0, keepdim=True)
+
+    score = _dyn_score(w, idle, a.alloc, rr)
+    score = score + a.tscore[t:t + 1]
+    bonus = a.bonus if sl.rev[s] > 0 else torch.zeros_like(a.bonus)
+    score = score + (a.nascore[t:t + 1] + bonus)
+    hit = (iota == sl.pref[s]) & (sl.pref[s] >= 0)
+    score = score + torch.where(hit, 100.0, 0.0)
+
+    n_now, f_now = _pick(shared & fit_now, score, iota)
+    n_fut, f_fut = _pick(shared & fit_fut, score, iota)
+    n_now, f_now, n_fut, f_fut = torch.stack(
+        [n_now, f_now.to(torch.int32), n_fut,
+         f_fut.to(torch.int32)]).tolist()
+    do_alloc = bool(f_now)
+    do_pipe = (not do_alloc) and bool(f_fut) and bool(cfg.enable_pipelining)
+    if not (do_alloc or do_pipe):
+        return -1, MODE_NONE, -1
+    node = n_now if do_alloc else n_fut
+    col = slice(node, node + 1)
+    if do_alloc:
+        idle[:, col] = idle[:, col] - rr
+    else:
+        pipe[:, col] = pipe[:, col] + rr
+    pods[:, col] = pods[:, col] + 1.0
+    card = -1
+    if gpu and gr > 0:
+        fits = (gidle[:, col] >= grm)[:, 0]
+        if bool(fits.any()):
+            card = int(torch.argmax(fits.to(torch.uint8)))
+            gpux[card, node] = gpux[card, node] + gr
+    return node, (MODE_ALLOCATED if do_alloc else MODE_PIPELINED), card
+
+
 def round_place_plain(cfg, K: int, M: int, args, stats=None):
     """Plain PyTorch version of the round placer (see the module docstring).
 
@@ -185,30 +274,22 @@ def round_place_plain(cfg, K: int, M: int, args, stats=None):
     a = unpack_args(cfg, args)
     gpu = bool(cfg.enable_gpu)
     dev = a.idle.device
-    R, N = a.idle.shape
+    N = a.idle.shape[1]
     KM = K * M
     w = _weights(cfg)
     iota = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
-
-    slot = torch.cat([a.pref, a.suffix, a.tmpl, a.grp, a.voln, a.volok,
-                      a.rev, a.active]).tolist()
-    pref, suffix, tmpl, grp, voln, volok, rev, act = slot
+    sl = SlotLists.of(a)
+    suffix, act = torch.cat([a.suffix, a.active]).tolist()
     ready0, minav, canb, secact, istgt = torch.cat(
         [a.ready0, a.minav, a.canb, a.secact, a.istgt]).tolist()
-    blocknr, blockall = a.blocknr > 0, a.blockall > 0
-    locked = a.locked > 0
-    if gpu:
-        gr_all = a.gpu_req[0].tolist()
 
-    idle, pipe, pods = a.idle.clone(), a.pipe.clone(), a.pods.clone()
-    gpux = a.gpux.clone() if gpu else None
+    state = [a.idle.clone(), a.pipe.clone(), a.pods.clone(),
+             a.gpux.clone() if gpu else None]
     node_o = [-1] * KM
     mode_o = [MODE_NONE] * KM
     gpu_o = [-1] * KM
-    attempts = 0
     for k in range(K):
-        saved = (idle.clone(), pipe.clone(), pods.clone(),
-                 gpux.clone() if gpu else None)
+        saved = [x.clone() if x is not None else None for x in state]
         n_allocs = n_pipes = 0
         stopped = broke = False
         for m in range(M):
@@ -216,68 +297,13 @@ def round_place_plain(cfg, K: int, M: int, args, stats=None):
             if not (act[s] > 0 and secact[k] > 0 and not stopped
                     and not broke):
                 continue
-            attempts += 1
-            rr = a.resreq[:, s:s + 1]                              # [R, 1]
-            t = tmpl[s]
-            sfeas = a.tstat[t:t + 1] > 0
-            if not rev[s] > 0:
-                sfeas = sfeas & ~blocknr
-            sfeas = sfeas & ~blockall
-            if grp[s] >= 0:
-                sfeas = sfeas & (a.orfeas[grp[s]:grp[s] + 1] > 0)
-            if not volok[s] > 0:
-                sfeas = torch.zeros_like(sfeas)
-            if voln[s] >= 0:
-                sfeas = sfeas & (iota == voln[s])
-            if not istgt[k] > 0:
-                sfeas = sfeas & ~locked
-
-            future = (idle + a.relmp - pipe).clamp_min(0.0)
-            shared = sfeas & ((a.cnt + pods) < a.maxp)
-            if gpu:
-                gr = gr_all[s]
-                gidle = a.gidle0 - gpux
-                grm = float(np.float32(gr) - np.float32(_EPS_FIT))
-                if not gr <= 0:
-                    shared = shared & (gidle >= grm).any(0, keepdim=True)
-            fit_now = (rr <= idle + _EPS_FIT).all(0, keepdim=True)
-            fit_fut = (rr <= future + _EPS_FIT).all(0, keepdim=True)
-
-            score = _dyn_score(w, idle, a.alloc, rr)
-            score = score + a.tscore[t:t + 1]
-            bonus = a.bonus if rev[s] > 0 else torch.zeros_like(a.bonus)
-            score = score + (a.nascore[t:t + 1] + bonus)
-            hit = (iota == pref[s]) & (pref[s] >= 0)
-            score = score + torch.where(hit, 100.0, 0.0)
-
-            n_now, f_now = _pick(shared & fit_now, score, iota)
-            n_fut, f_fut = _pick(shared & fit_fut, score, iota)
-            n_now, f_now, n_fut, f_fut = torch.stack(
-                [n_now, f_now.to(torch.int32), n_fut,
-                 f_fut.to(torch.int32)]).tolist()
-            do_alloc = bool(f_now)
-            do_pipe = (not do_alloc) and bool(f_fut) \
-                and bool(cfg.enable_pipelining)
-            placed = do_alloc or do_pipe
+            node, mode, card = place_one(cfg, w, a, sl, s, istgt[k] > 0,
+                                         state, iota, stats)
+            placed = mode != MODE_NONE
             if placed:
-                node = n_now if do_alloc else n_fut
-                col = slice(node, node + 1)
-                if do_alloc:
-                    idle[:, col] = idle[:, col] - rr
-                else:
-                    pipe[:, col] = pipe[:, col] + rr
-                pods[:, col] = pods[:, col] + 1.0
-                card = -1
-                if gpu and gr > 0:
-                    fits = (gidle[:, col] >= grm)[:, 0]
-                    if bool(fits.any()):
-                        card = int(torch.argmax(fits.to(torch.uint8)))
-                        gpux[card, node] = gpux[card, node] + gr
-                node_o[s] = node
-                mode_o[s] = MODE_ALLOCATED if do_alloc else MODE_PIPELINED
-                gpu_o[s] = card
-            n_allocs += do_alloc
-            n_pipes += do_pipe
+                node_o[s], mode_o[s], gpu_o[s] = node, mode, card
+            n_allocs += mode == MODE_ALLOCATED
+            n_pipes += mode == MODE_PIPELINED
             ready_aft = (ready0[k] + n_allocs >= minav[k]
                          if cfg.enable_gang else True)
             stopped = stopped or (placed and ready_aft and suffix[s] > 0
@@ -290,13 +316,12 @@ def round_place_plain(cfg, K: int, M: int, args, stats=None):
         if not (ready or pipelined):
             for s in range(k * M, (k + 1) * M):
                 node_o[s], mode_o[s], gpu_o[s] = -1, MODE_NONE, -1
-            idle, pipe, pods, gpux = saved
-    if stats is not None:
-        stats["attempts"] = stats.get("attempts", 0) + attempts
+            state = saved
 
     def i32(v: List[int]) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
+    idle, pipe, pods, gpux = state
     outs = (i32(node_o), i32(mode_o), i32(gpu_o), idle, pipe, pods)
     return outs + ((gpux,) if gpu else ())
 

@@ -33,7 +33,10 @@ def lex_argmin(keys: Sequence[torch.Tensor],
     reference's nested priority queues (framework/session_plugins.go:440-554).
     """
     m = mask
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=mask.device)
+    # a fill on the device: a scalar copied from the host would wait for
+    # the stream
+    inf = torch.full((), float("inf"), dtype=torch.float32,
+                     device=mask.device)
     for k in keys:
         k = k.to(torch.float32)
         kmin = torch.min(torch.where(m, k, inf))

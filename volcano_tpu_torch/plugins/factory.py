@@ -12,18 +12,17 @@ from typing import Dict, Type
 
 from ..framework.conf import PluginOption
 from .base import Plugin
+from .drf import DRFPlugin
 from .gang import GangPlugin
-from .simple_plugins import BinpackPlugin, ConformancePlugin, PriorityPlugin
+from .proportion import ProportionPlugin
+from .simple_plugins import (BinpackPlugin, ConformancePlugin,
+                             NodeOrderPlugin, PredicatesPlugin,
+                             PriorityPlugin)
 
 _REGISTRY: Dict[str, Type[Plugin]] = {}
 
 #: reference plugins still to port -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "drf": "queue 1 item 1 (the dynamic-key kernel with the default conf)",
-    "proportion": "queue 1 item 1 (the dynamic-key kernel with the default "
-                  "conf)",
-    "predicates": "queue 1 item 3 (host_extras / predicates / nodeorder)",
-    "nodeorder": "queue 1 item 3 (host_extras / predicates / nodeorder)",
     "tdm": "queue 1 item 5 (the other actions)",
     "reservation": "queue 1 item 5 (the other actions)",
     "task-topology": "queue 1 item 5 (the other actions)",
@@ -54,5 +53,6 @@ def registered_plugins():
     return sorted(_REGISTRY)
 
 
-for _cls in (PriorityPlugin, GangPlugin, ConformancePlugin, BinpackPlugin):
+for _cls in (PriorityPlugin, GangPlugin, ConformancePlugin, BinpackPlugin,
+             DRFPlugin, PredicatesPlugin, ProportionPlugin, NodeOrderPlugin):
     register_plugin_builder(_cls.name, _cls)
