@@ -48,12 +48,37 @@ Phases, each of which fails the run (exit code 1) when it fails:
    size, ca79ec8f9cd6b7f6 with 16 tasks placed (every queue's deserved is
    0 there: the reference's proportion sentinel, ROADMAP section 3 (d));
 11. dynamic-key placer and segmented sum times at check B's shapes, as
-   phase 6, with ``index_add_`` as the segmented sum's library call.
+   phase 6, with ``index_add_`` as the segmented sum's library call;
+12. the pod-affinity step (kernel 2 of the reference) in both placers
+   against the plain versions, bitwise: the first 3 launches of check E's
+   cycle, and small built inputs (``ops/dyn_cases.py`` AFF_CASES) for the
+   first-pod escape, own and symmetric anti-affinity, negative preferred
+   weights, no live node, a gang discard that must take the counts back,
+   in the round placer and in the dynamic-key placer with drf;
+13. check E, this slice's main path: ``Session(affinity_scenario(10000,
+   2500), gang + predicates + binpack).run_allocate()``, BASELINE
+   configuration 5 (10,000 nodes in 16 zones and 500 racks, 2,500 gangs of
+   8, required rack anti-affinity and preferred zone affinity); the counts
+   are set to 0 just before and read just after, and the round placer must
+   have launched with pod affinity on; fingerprint a2267c3d4e340d03, the
+   JAX Session's; then the raw configuration-5 cycle as
+   ``scripts/affinity_record.py`` builds it (pack, ``build_affinity``,
+   binpack 1 through ``derive_batching``, no Session): the same
+   fingerprint, which the numpy oracle gives too;
+14. check F, the dynamic-key path with pod affinity:
+   ``Session(affinity_scenario(1024, 320, seed=1), the shipped
+   conf).run_allocate()``: the dynamic-key placer must have launched with
+   pod affinity on, and the kernel cycle and the plain cycle on the card
+   both give 07085317a58495b3, the JAX Session's;
+15. the pod-affinity step's own time: CUDA events around the round placer
+   at check E's shapes, and the dynamic-key placer at check F's, with pod
+   affinity on and off, beside the plain versions' and the bound.
 
 The expected fingerprints are the JAX package's scan path's (and, for A,
-B and D, its oracle's too). The second-to-last line holds the kernels'
-JSON record, the last line ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX.
+B, D and the raw configuration-5 cycle, its oracle's too). Each phase's
+seconds are printed on a ``phase_seconds`` line. The second-to-last line
+holds the kernels' JSON record, the last line ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -73,6 +98,10 @@ CHECK_A = ("c4b4ff88c1a32065", 16404)
 CHECK_B = ("f2d84749323295e1", 16530, 1330)
 CHECK_C = "3ae3ff8ac7b0b9b7"
 CHECK_D = ("ca79ec8f9cd6b7f6", 16)
+#: check E (BASELINE configuration 5) and check F: cluster size, and
+#: fingerprint, tasks placed and jobs ready
+CHECK_E = ((10000, 2500), ("a2267c3d4e340d03", 20000, 2500))
+CHECK_F = ((1024, 320, 1), ("07085317a58495b3", 1961, 268))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -102,6 +131,16 @@ def gang_binpack_conf():
                                              SchedulerConfiguration, Tier)
     return SchedulerConfiguration(actions=["allocate"], tiers=[
         Tier([PluginOption("gang"), PluginOption("binpack")])])
+
+
+def affinity_conf():
+    """The north-star conf plus the predicates plugin, which carries
+    InterPodAffinity (predicates.go:196-200)."""
+    from volcano_tpu_torch.framework import (PluginOption,
+                                             SchedulerConfiguration, Tier)
+    return SchedulerConfiguration(actions=["allocate"], tiers=[
+        Tier([PluginOption("gang"), PluginOption("predicates"),
+              PluginOption("binpack")])])
 
 
 def shipped_conf():
@@ -288,7 +327,8 @@ def time_kernel(call):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                attempts=attempts, bytes=nbytes, ops=ops)
+                attempts=attempts, bytes=nbytes, ops=ops,
+                stats={k: v / plain_reps for k, v in stats.items()})
 
 
 def compare_dyn_kernel_plain(calls):
@@ -379,7 +419,8 @@ def time_dyn_kernel(call):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                attempts=attempts, pops=pops, bytes=nbytes, ops=ops)
+                attempts=attempts, pops=pops, bytes=nbytes, ops=ops,
+                stats={k: v / plain_reps for k, v in stats.items()})
 
 
 def seg_fold_calls(ssn, dyn_calls):
@@ -470,6 +511,80 @@ def time_seg_fold(call):
                 rows=vals.shape[0], segments=num, bytes=nbytes, ops=ops)
 
 
+def aff_built_calls():
+    """The small built inputs of the pod-affinity cases
+    (``volcano_tpu_torch/ops/dyn_cases.py`` AFF_CASES), on the card: the
+    round placer with and without GPU cards, and the dynamic-key placer
+    with drf."""
+    import torch
+
+    from volcano_tpu_torch.ops.allocate_scan import AllocateConfig
+    from volcano_tpu_torch.ops.dyn_cases import (AFF_CASES, PLACER_WEIGHTS,
+                                                 aff_placer_knobs,
+                                                 make_dyn_inputs,
+                                                 make_inputs)
+    rounds, dyns = [], []
+    for case in sorted(AFF_CASES):
+        knobs = dict(aff=AFF_CASES[case], **aff_placer_knobs(case))
+        for seed in (0, 1, 2):
+            for gpu in (False, True):
+                cfg = AllocateConfig(enable_gpu=gpu, enable_pod_affinity=True,
+                                     pod_affinity_weight=1.5,
+                                     **PLACER_WEIGHTS)
+                rounds.append((cfg, 8, 4, [torch.from_numpy(a).cuda() for a
+                                           in make_inputs(seed, gpu=gpu,
+                                                          **knobs)]))
+            flags, args = make_dyn_inputs(seed, drf_job_order=True, **knobs)
+            cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+            dyns.append((cfg, 4, 12, 4, [torch.from_numpy(a).cuda()
+                                         for a in args]))
+    return rounds, dyns
+
+
+def without_affinity(call, dyn=False):
+    """The same launch with the pod-affinity step off: its arguments
+    dropped, the flag cleared."""
+    import dataclasses
+
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    from volcano_tpu_torch.ops import round_placer as rp
+    cfg, *shape, args = call
+    a = (dp if dyn else rp).unpack_args(cfg, args)
+    off = a._replace(**{f: None for f in rp.AFF_FIELDS + rp.AFF_STATE})
+    return (dataclasses.replace(cfg, enable_pod_affinity=False), *shape,
+            [t for t in off if t is not None])
+
+
+def aff_step_time(call, dyn=False):
+    """The pod-affinity step's own time in one launch: the kernel and the
+    plain version with the step on, minus the same launch with it off; and
+    its bound: the affinity arguments read once and the counts written
+    once, over the float32 operations its attempts and commits need
+    (per node: 3 per term row read, 8 for the mask, normalisation and
+    score, 2 per count row a commit writes)."""
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    from volcano_tpu_torch.ops import round_placer as rp
+    timer = time_dyn_kernel if dyn else time_kernel
+    on, off = timer(call), timer(without_affinity(call, dyn))
+    cfg, *_, args = call
+    a = (dp if dyn else rp).unpack_args(cfg, args)
+    N = a.idle.shape[1]
+    nbytes = sum(getattr(a, f).numel() * 4 for f in rp.AFF_FIELDS) + 2 * sum(
+        getattr(a, f).numel() * 4 for f in rp.AFF_STATE)
+    st = on["stats"]
+    ops = N * (3 * st.get("aff_rows", 0) + 8 * st["attempts"]
+               + 2 * st.get("aff_commit_rows", 0))
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(ms=on["ms"] - off["ms"], ms_on=on["ms"], ms_off=off["ms"],
+                plain_ms=on["plain_ms"] - off["plain_ms"],
+                plain_ms_on=on["plain_ms"], plain_ms_off=off["plain_ms"],
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                attempts=st["attempts"], aff_rows=st.get("aff_rows", 0),
+                aff_commit_rows=st.get("aff_commit_rows", 0), bytes=nbytes,
+                ops=ops)
+
+
 def dyn_counts():
     from volcano_tpu_torch.ops import dyn_placer as dp
     from volcano_tpu_torch.ops import seg_fold as sf
@@ -483,8 +598,24 @@ def zero_dyn_counts():
     dp.launches = dp.pops = dp.early_stops = sf.launches = 0
 
 
+class Clock:
+    """Seconds of each phase: ``lap(name)`` closes the running phase and
+    starts ``name``."""
+
+    def __init__(self):
+        self.seconds, self.name, self.t0 = {}, None, time.perf_counter()
+
+    def lap(self, name=None):
+        now = time.perf_counter()
+        if self.name is not None:
+            self.seconds[self.name] = now - self.t0
+        self.name, self.t0 = name, now
+
+
 def main():
+    clock = Clock()
     # ---- 1. device ------------------------------------------------------
+    clock.lap('1 device')
     try:
         import torch
         if not torch.cuda.is_available():
@@ -504,6 +635,7 @@ def main():
         fail("1 (device)", e)
 
     # ---- 2. build -------------------------------------------------------
+    clock.lap('2 build')
     try:
         t0 = time.perf_counter()
         logs = _build.build(["round_placer", "dyn_placer", "seg_fold"])
@@ -514,6 +646,7 @@ def main():
         fail("2 (build)", e)
 
     # ---- 3. kernel against plain version --------------------------------
+    clock.lap('3 round_vs_plain')
     conf = gang_binpack_conf()
     try:
         t0 = time.perf_counter()
@@ -540,6 +673,7 @@ def main():
         fail("3 (kernel against plain version)", e)
 
     # ---- 4. the main path at full size ----------------------------------
+    clock.lap('4 north_star')
     try:
         rp.launches = 0
         t0 = time.perf_counter()
@@ -564,6 +698,7 @@ def main():
         fail("4 (main path)", e)
 
     # ---- 5. sub-scale cycle, kernel against plain -----------------------
+    clock.lap('5 subscale')
     from volcano_tpu_torch.arrays import to_device
     from volcano_tpu_torch.ops.allocate_scan import make_allocate_cycle
     try:
@@ -588,6 +723,7 @@ def main():
         fail("5 (sub-scale)", e)
 
     # ---- 6. kernel time at the main path's shapes -----------------------
+    clock.lap('6 round_time')
     try:
         t = time_kernel(full_calls[0])
         log(json.dumps({"phase": "kernel_time", **t}))
@@ -602,6 +738,7 @@ def main():
         fail("6 (kernel time)", e)
 
     # ---- 7. dynamic-key placer against its plain version --------------
+    clock.lap('7 dyn_vs_plain')
     from volcano_tpu_torch.ops import dyn_placer as dp
     shipped = shipped_conf()
     try:
@@ -623,6 +760,7 @@ def main():
         fail("7 (dynamic-key placer against plain version)", e)
 
     # ---- 8. check A: the bench's fair-share configuration, no Session ---
+    clock.lap('8 check_A')
     try:
         from volcano_tpu_torch.arrays import pack
         from volcano_tpu_torch.ops.allocate_scan import (AllocateConfig,
@@ -651,6 +789,7 @@ def main():
         fail("8 (check A)", e)
 
     # ---- 9. check B: the dynamic-key main path --------------------------
+    clock.lap('9 check_B')
     try:
         zero_dyn_counts()
         t0 = time.perf_counter()
@@ -679,6 +818,7 @@ def main():
         fail("9 (check B, the dynamic-key main path)", e)
 
     # ---- 10. checks C and D ---------------------------------------------
+    clock.lap('10 checks_C_D')
     try:
         sub_c = Session(_synthetic_cluster(*SUB), shipped, device="cuda")
         cfg, extras = sub_c._derived_allocate_inputs()
@@ -714,6 +854,7 @@ def main():
         fail("10 (checks C and D)", e)
 
     # ---- 11. dynamic-key placer and segmented sum times, check B's shapes
+    clock.lap('11 dyn_times')
     try:
         t = time_dyn_kernel(b_calls[0])
         log(json.dumps({"phase": "dyn_kernel_time", **t}))
@@ -739,6 +880,152 @@ def main():
     except Exception as e:
         fail("11 (dynamic-key placer and segmented sum times)", e)
 
+    # ---- 12. the pod-affinity step against its plain version -----------
+    clock.lap("12 aff_vs_plain")
+    from volcano_tpu_torch.synthetic import affinity_scenario
+    try:
+        (e_nodes, e_jobs), e_want = CHECK_E
+        t0 = time.perf_counter()
+        ssn_e = Session(affinity_scenario(e_nodes, e_jobs), affinity_conf(),
+                        device="cuda")
+        build_e_s = time.perf_counter() - t0
+        e_calls = record_launches(ssn_e, keep=3, stop_after=3)
+        assert len(e_calls) == 3, "check E's cycle made under 3 launches"
+        assert e_calls[0][0].enable_pod_affinity, "check E lost pod affinity"
+        built_r, built_d = aff_built_calls()
+        aff_err = max(compare_kernel_plain(e_calls + built_r),
+                      compare_dyn_kernel_plain(built_d))
+        log(json.dumps({"phase": "aff_vs_plain",
+                        "round_launches_compared": len(e_calls + built_r),
+                        "dyn_launches_compared": len(built_d),
+                        "max_abs_err": aff_err}))
+    except Exception as e:
+        fail("12 (pod-affinity step against plain version)", e)
+
+    # ---- 13. check E: BASELINE configuration 5, this slice's main path --
+    clock.lap("13 check_E")
+    from volcano_tpu_torch.arrays import pack
+    from volcano_tpu_torch.arrays.affinity import build_affinity
+    from volcano_tpu_torch.ops.allocate_scan import (AllocateConfig,
+                                                     AllocateExtras,
+                                                     derive_batching)
+    try:
+        rp.launches = rp.aff_launches = 0
+        t0 = time.perf_counter()
+        ssn_e.run_allocate()
+        session_e_ms = (time.perf_counter() - t0) * 1000
+        counts_e = dict(launches=rp.launches, aff_launches=rp.aff_launches)
+        res = ssn_e.last_allocate
+        sha = fingerprint(res.task_node, res.task_mode)
+        placed = int((res.task_mode > 0).sum())
+        ready = int(res.job_ready.sum())
+        log(json.dumps({"phase": "check_E", "nodes": e_nodes,
+                        "tasks": e_jobs * 8, "cluster_build_s": build_e_s,
+                        "pack_ms": ssn_e.stats["pack_ms"],
+                        "affinity_ms": ssn_e.stats["affinity_ms"],
+                        "cycle_ms": ssn_e.stats["cycle_ms"],
+                        "apply_ms": ssn_e.stats["apply_ms"],
+                        "run_allocate_ms": session_e_ms,
+                        "binds": len(ssn_e.binds), **counts_e,
+                        "placed": placed, "jobs_ready": ready,
+                        "fingerprint": sha}))
+        assert counts_e["aff_launches"] > 0, \
+            "the main path launched no round placer with pod affinity"
+        assert (sha, placed, ready) == e_want, (sha, placed, ready)
+        # the raw configuration-5 cycle, as scripts/affinity_record.py
+        # builds it: no Session
+        ci_raw = affinity_scenario(e_nodes, e_jobs)
+        snap_r, maps_r = pack(ci_raw)
+        N_r, T_r = snap_r.nodes.idle.shape[0], snap_r.tasks.resreq.shape[0]
+        extras_r = AllocateExtras.neutral(snap_r)
+        extras_r.affinity = build_affinity(ci_raw, maps_r, N_r, T_r)
+        cfg_r = derive_batching(AllocateConfig(
+            binpack_weight=1.0, least_allocated_weight=0.0,
+            balanced_weight=0.0, taint_prefer_weight=0.0,
+            enable_pod_affinity=True, enable_gpu=False),
+            has_proportion=False)
+        t0 = time.perf_counter()
+        res = make_allocate_cycle(cfg_r)(to_device(snap_r, "cuda"),
+                                         to_device(extras_r, "cuda"))
+        tn, tm = res.task_node.cpu().numpy(), res.task_mode.cpu().numpy()
+        raw_ms = (time.perf_counter() - t0) * 1000
+        sha_r = fingerprint(tn, tm)
+        log(json.dumps({"phase": "config5_raw_cycle", "cycle_ms": raw_ms,
+                        "placed": int((tm > 0).sum()),
+                        "fingerprint": sha_r}))
+        assert sha_r == e_want[0], f"fingerprint {sha_r} != {e_want[0]}"
+    except Exception as e:
+        fail("13 (check E, BASELINE configuration 5)", e)
+
+    # ---- 14. check F: the dynamic-key path with pod affinity -----------
+    clock.lap("14 check_F")
+    try:
+        (f_nodes, f_jobs, f_seed), f_want = CHECK_F
+        ssn_f = Session(affinity_scenario(f_nodes, f_jobs, seed=f_seed),
+                        shipped, device="cuda")
+        cfg, extras = ssn_f._derived_allocate_inputs()
+        assert cfg.enable_pod_affinity and cfg.batch_rounds > 0, cfg
+        s_d, e_d = to_device(ssn_f.snap, "cuda"), to_device(extras, "cuda")
+        f_calls = record_launches(ssn_f, keep=1, stop_after=1, dyn=True)
+        zero_dyn_counts()
+        dp.aff_launches = 0
+        t0 = time.perf_counter()
+        ssn_f.run_allocate()
+        session_f_ms = (time.perf_counter() - t0) * 1000
+        counts_f = dict(dyn_counts(), aff_launches=dp.aff_launches)
+        res = ssn_f.last_allocate
+        sha_f = fingerprint(res.task_node, res.task_mode)
+        placed = int((res.task_mode > 0).sum())
+        ready = int(res.job_ready.sum())
+        t0 = time.perf_counter()
+        k_packed = make_allocate_cycle(cfg)(s_d, e_d).packed_decisions().cpu()
+        k_ms = (time.perf_counter() - t0) * 1000
+        t0 = time.perf_counter()
+        p_packed = make_allocate_cycle(
+            cfg, placer=rp.round_place_plain,
+            dyn_placer=dp.dyn_place_plain)(s_d, e_d).packed_decisions().cpu()
+        p_ms = (time.perf_counter() - t0) * 1000
+        T_f = ssn_f.snap.tasks.status.shape[0]
+        sha_k = fingerprint(k_packed[:T_f].numpy(),
+                            k_packed[T_f:2 * T_f].numpy())
+        log(json.dumps({"phase": "check_F", "nodes": f_nodes,
+                        "tasks": f_jobs * 8,
+                        "cycle_ms": ssn_f.stats["cycle_ms"],
+                        "run_allocate_ms": session_f_ms, **counts_f,
+                        "placed": placed, "jobs_ready": ready,
+                        "fingerprint": sha_f, "kernel_cycle_ms": k_ms,
+                        "plain_cycle_ms": p_ms,
+                        "kernel_cycle_fingerprint": sha_k}))
+        assert counts_f["aff_launches"] > 0, \
+            "check F launched no dynamic-key placer with pod affinity"
+        assert torch.equal(k_packed, p_packed), "F: kernel and plain differ"
+        assert (sha_f, placed, ready) == f_want, (sha_f, placed, ready)
+        assert sha_k == f_want[0], f"F: kernel cycle gave {sha_k}"
+    except Exception as e:
+        fail("14 (check F, the dynamic-key path with pod affinity)", e)
+
+    # ---- 15. the pod-affinity step's own time --------------------------
+    clock.lap("15 aff_times")
+    try:
+        for name, call, dyn, counts in (
+                ("pod_affinity_in_round_placer", e_calls[0], False,
+                 counts_e),
+                ("pod_affinity_in_dyn_placer", f_calls[0], True, counts_f)):
+            t = aff_step_time(call, dyn)
+            log(json.dumps({"phase": "aff_time", "name": name, **t}))
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "volcano_tpu_torch/csrc/placement.cuh",
+                "replaces": "volcano_tpu/ops/pallas_place.py:186",
+                "launches": counts["aff_launches"], "max_abs_err": aff_err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None})
+    except Exception as e:
+        fail("15 (pod-affinity step time)", e)
+    clock.lap()
+
+    log(json.dumps({"phase_seconds": clock.seconds}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Where the time of one volcano_tpu_torch allocate cycle goes, on the card.
 
-    python3 scripts/torch_cycle_profile.py [--cell north_star | fair_share]
+    python3 scripts/torch_cycle_profile.py
+        [--cell north_star | fair_share | affinity]
         [--nodes 10000 --jobs 6250 --tasks-per-job 16] [--window N]
         [--cycles 2] [--out PATH]
 
@@ -8,7 +9,11 @@ The ``north_star`` cell (default) is the synthetic cluster of the given
 size under gang + binpack: the static-key path. The ``fair_share`` cell is
 ``chip_smoke.py``'s check B: the bench's configuration 3 (1024 nodes, 8
 weighted queues, 3,125 gangs of 16) under the shipped
-``conf/volcano-scheduler.conf``: the dynamic-key path. The script packs and
+``conf/volcano-scheduler.conf``: the dynamic-key path. The ``affinity``
+cell is ``chip_smoke.py``'s check E: BASELINE configuration 5
+(``synthetic.affinity_scenario(10000, 2500)``, rack anti-affinity and zone
+preferred affinity) under gang + predicates + binpack: the static-key path
+with the pod-affinity step in the round placer. The script packs and
 uploads the snapshot once, runs the allocate cycle once to build and warm
 the kernels, then:
 
@@ -19,10 +24,12 @@ the kernels, then:
    profiled wall time (the device's idle share). With ``--window N`` the
    profiled run stops after N placer launches: a steady window of a long
    cycle, whose numbers are per round. The profiled run also reports the
-   host time of the cycle's selection steps (``host_ms_by_step``: each of
-   ``namespace_shares``, ``drf_job_shares``, ``hdrf_level_keys`` and
-   ``lex_argmin`` in ``ops/allocate_scan.py``, wrapped in a profiler
-   span) and the calls that make the host wait for the device or copy
+   host time of the cycle's steps (``host_ms_by_step``: each of
+   ``namespace_shares``, ``drf_job_shares``, ``hdrf_level_keys``,
+   ``lex_argmin`` and ``gather_slot_tables`` in ``ops/allocate_scan.py``,
+   and the placer calls, wrapped in a profiler span; the rest of a round
+   is the loop's own tensor work) and the calls that make the host wait
+   for the device or copy
    between the two (``waits_by_name``: stream and device synchronisations,
    memory copies), both per placer launch.
 
@@ -57,7 +64,8 @@ def busy_us(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cell", choices=("north_star", "fair_share"),
+    ap.add_argument("--cell", choices=("north_star", "fair_share",
+                                       "affinity"),
                     default="north_star")
     ap.add_argument("--window", type=int, default=0,
                     help="profile only the first N placer launches")
@@ -88,6 +96,11 @@ def main():
     if args.cell == "fair_share":
         import chip_smoke
         ci, conf = chip_smoke.fair_share_cluster(), chip_smoke.shipped_conf()
+    elif args.cell == "affinity":
+        import chip_smoke
+        from volcano_tpu_torch.synthetic import affinity_scenario
+        ci = affinity_scenario(*chip_smoke.CHECK_E[0])
+        conf = chip_smoke.affinity_conf()
     else:
         conf = SchedulerConfiguration(actions=["allocate"], tiers=[
             Tier([PluginOption("gang"), PluginOption("binpack")])])
@@ -112,7 +125,9 @@ def main():
         cycle(snap_d, extras_d).packed_decisions().cpu()
         wall.append((time.perf_counter() - t0) * 1000)
     launches = {"round_placer": rp.launches, "dyn_placer": dp.launches,
-                "seg_fold": sf.launches if sf is not None else None}
+                "seg_fold": sf.launches if sf is not None else None,
+                "pod_affinity": (getattr(rp, "aff_launches", 0)
+                                 + getattr(dp, "aff_launches", 0))}
 
     class Stop(Exception):
         pass
@@ -127,15 +142,7 @@ def main():
             return place(*a)
         return placer
 
-    profiled = cycle
-    if args.window:
-        profiled = make_allocate_cycle(cfg, placer=window(rp.round_place),
-                                       dyn_placer=window(dp.dyn_place))
-
     from torch.profiler import ProfilerActivity, profile, record_function
-
-    steps = ("namespace_shares", "drf_job_shares", "hdrf_level_keys",
-             "lex_argmin")
 
     def span(name, fn):
         def wrapped(*a, **kw):
@@ -143,8 +150,17 @@ def main():
                 return fn(*a, **kw)
         return wrapped
 
+    place, place_dyn = rp.round_place, dp.dyn_place
+    if args.window:
+        place, place_dyn = window(place), window(place_dyn)
+    profiled = make_allocate_cycle(cfg, placer=span("round_placer", place),
+                                   dyn_placer=span("dyn_placer", place_dyn))
+    steps = ["namespace_shares", "drf_job_shares", "hdrf_level_keys",
+             "lex_argmin", "gather_slot_tables"]
+    steps = [n for n in steps if hasattr(tas, n)]   # a tree before a step
     for name in steps:
         setattr(tas, name, span(name, getattr(tas, name)))
+    steps += ["round_placer", "dyn_placer"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()

@@ -132,8 +132,6 @@ def test_cycle_goes_through_the_given_placer():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(enable_pod_affinity=True, batch_rounds=32, batch_jobs=8),
-    dict(enable_pod_affinity=True),
     dict(enable_host_ports=True), dict(telemetry=True), dict(wave_width=4),
     dict(enable_host_ports=True, drf_job_order=True, batch_rounds=32),
     dict(telemetry=True, drf_ns_order=True, batch_jobs=8, batch_rounds=32)])
@@ -141,6 +139,36 @@ def test_unported_configs_name_their_roadmap_item(overrides):
     cfg = tas.AllocateConfig(**overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tas.make_allocate_cycle(cfg)
+    if cfg.enable_host_ports:
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            tas.make_allocate_cycle(cfg)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(enable_pod_affinity=True, batch_rounds=32, batch_jobs=8),
+    dict(enable_pod_affinity=True)])
+def test_pod_affinity_configs_match_jax_cycle(overrides):
+    """The two pod-affinity configurations that raised before the port
+    carried kernel 2: the dynamic-key placer (drf job order) and one job
+    per round, against the JAX scan path on the same snapshot."""
+    from volcano_tpu.arrays.affinity import build_affinity
+
+    from torch_fixtures import pod_affinity_cluster
+    ci = pod_affinity_cluster(japi, 6, n_nodes=16, n_jobs=6, zones=4,
+                              racks=5, running_pods=6)
+    snap, maps = pack(ci)
+    N, T = snap.nodes.idle.shape[0], snap.tasks.resreq.shape[0]
+    extras = dataclasses.replace(AllocateExtras.neutral(snap),
+                                 affinity=build_affinity(ci, maps, N, T))
+    cfg = AllocateConfig(binpack_weight=1.0, least_allocated_weight=0.0,
+                         balanced_weight=0.0, taint_prefer_weight=0.0,
+                         drf_job_order="batch_rounds" in overrides,
+                         enable_gpu=False, enable_pod_affinity=True)
+    got = port_packed(snap, extras, cfg, **overrides)
+    scan = jax.jit(jax_cycle(dataclasses.replace(
+        cfg, use_pallas=False)))(snap, extras)
+    np.testing.assert_array_equal(got, np.asarray(scan.packed_decisions()))
+    assert (got[T:2 * T] > 0).any()
 
 
 def test_static_batching_refuses_dynamic_keys():

@@ -1,4 +1,6 @@
-"""The CUDA round placer against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+round placer (with and without its pod-affinity step), the pod-affinity
+step in the dynamic-key placer, and the segmented sum.
 
 Imports nothing of JAX, so it runs on a machine with a card and no JAX:
 
@@ -10,7 +12,9 @@ Where there is no card every test skips (decided inside the test).
 import pytest
 import torch
 
-from torch_fixtures import CASES, PLACER_WEIGHTS, make_inputs
+from torch_fixtures import (AFF_CASES, CASES, PLACER_WEIGHTS,
+                            aff_placer_knobs, make_dyn_inputs, make_inputs)
+from volcano_tpu_torch.ops import dyn_placer as dp
 from volcano_tpu_torch.ops import round_placer as rp
 from volcano_tpu_torch.ops.allocate_scan import AllocateConfig
 
@@ -47,6 +51,80 @@ def test_kernel_rejects_wrong_layout():
     t[-3] = t[-3].T.contiguous().T          # idle, transposed layout
     with pytest.raises(ValueError, match="contiguous"):
         rp.round_place_cuda(cfg, 8, 4, t)
+
+
+# ---- the pod-affinity step in both placers (kernel 2) -----------------------
+
+def assert_same(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gpu", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", sorted(AFF_CASES))
+def test_round_affinity_kernel_matches_plain_bitwise(case, seed, gpu):
+    need_card()
+    cfg = AllocateConfig(enable_gpu=gpu, enable_pod_affinity=True,
+                         pod_affinity_weight=1.5, **PLACER_WEIGHTS)
+    t = [torch.from_numpy(a).cuda() for a in make_inputs(
+        seed, gpu=gpu, aff=AFF_CASES[case], **aff_placer_knobs(case))]
+    want = rp.round_place_plain(cfg, 8, 4, t)
+    before = (rp.launches, rp.aff_launches)
+    got = rp.round_place(cfg, 8, 4, t)
+    torch.cuda.synchronize()
+    assert (rp.launches, rp.aff_launches) == (before[0] + 1, before[1] + 1)
+    assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", sorted(AFF_CASES))
+def test_dyn_affinity_kernel_matches_plain_bitwise(case, seed):
+    need_card()
+    flags, args = make_dyn_inputs(seed, drf_job_order=True,
+                                  aff=AFF_CASES[case],
+                                  **aff_placer_knobs(case))
+    cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+    t = [torch.from_numpy(a).cuda() for a in args]
+    want = dp.dyn_place_plain(cfg, 4, 12, 4, t)
+    before = dp.aff_launches
+    got = dp.dyn_place(cfg, 4, 12, 4, t)
+    torch.cuda.synchronize()
+    assert dp.aff_launches == before + 1
+    assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_kernels_reject_wrong_affinity_layout():
+    """The launchers refuse affinity arguments of the wrong layout, shape
+    or type before anything is launched."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=False, enable_pod_affinity=True,
+                         **PLACER_WEIGHTS)
+    t = [torch.from_numpy(a).cuda() for a in make_inputs(
+        2, gpu=False, aff=AFF_CASES["mixed"])]
+    a = rp.unpack_args(cfg, t)
+    before = rp.launches
+    for bad, match in ((a._replace(aff_cnt=a.aff_cnt.T.contiguous().T),
+                        "contiguous"),
+                       (a._replace(skdom=a.skdom.to(torch.float32)),
+                        "skdom"),
+                       (a._replace(prefw=a.prefw[:, :-1].contiguous()),
+                        "prefw")):
+        with pytest.raises(ValueError, match=match):
+            rp.round_place_cuda(cfg, 8, 4, [x for x in bad if x is not None])
+    flags, args = make_dyn_inputs(2, drf_job_order=True,
+                                  aff=AFF_CASES["mixed"])
+    dcfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+    d = dp.unpack_args(dcfg, [torch.from_numpy(x).cuda() for x in args])
+    bad = d._replace(anti_cnt=d.anti_cnt.T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp.dyn_place_cuda(dcfg, 4, 12, 4, [x for x in bad if x is not None])
+    assert rp.launches == before
 
 
 # ---- the segmented sum in row order (ops/seg_fold.py) ---------------------

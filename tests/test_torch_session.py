@@ -14,11 +14,9 @@ import pytest
 
 import volcano_tpu.api as japi
 import volcano_tpu_torch.api as tapi
-from volcano_tpu.framework import Session as JaxSession
-from volcano_tpu.framework import parse_conf as jax_parse_conf
 
 from torch_fixtures import (HDRF_SCENARIO, affinity_cluster, hdrf_cluster,
-                            random_cluster)
+                            random_cluster, session_pair)
 from volcano_tpu_torch.framework import (PluginOption, SchedulerConfiguration,
                                          Session, Tier, parse_conf)
 
@@ -51,20 +49,8 @@ CONFS = {
 }
 
 
-def outcome(ssn):
-    ssn.close()
-    return ({b.task_uid: (b.node_name, b.gpu_index) for b in ssn.binds},
-            dict(ssn.pipelined), dict(ssn.phase_updates),
-            dict(ssn.conditions))
-
-
 def run_pair(build, conf_name):
-    jax_ssn = JaxSession(build(japi), jax_parse_conf(CONFS[conf_name]))
-    jax_ssn.run_allocate()
-    port_ssn = Session(build(tapi), parse_conf(CONFS[conf_name]),
-                       device="cpu")
-    port_ssn.run_allocate()
-    return outcome(jax_ssn), outcome(port_ssn), port_ssn
+    return session_pair(build, CONFS[conf_name])
 
 
 @pytest.mark.parametrize("conf_name", sorted(CONFS))

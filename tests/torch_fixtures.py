@@ -2,8 +2,7 @@
 
 Clusters are built with either package's own ``api`` from one numpy seed;
 snapshots packed by the JAX package reach the port as the same bytes through
-``arrays.schema.snapshot_from_numpy``; round placer inputs come from
-:func:`make_inputs`, dynamic-key placer inputs from the port's
+``arrays.schema.snapshot_from_numpy``; placer inputs come from the port's
 ``ops/dyn_cases.py``. Imports nothing of JAX at module level, so the card-only
 tests can use it on a machine without JAX.
 """
@@ -17,7 +16,8 @@ import numpy as np
 
 # the placer cases shared with chip_smoke.py
 from volcano_tpu_torch.ops.dyn_cases import (  # noqa: F401
-    DYN_CASES, DYN_FLAGS, PLACER_WEIGHTS, make_dyn_inputs)
+    AFF_CASES, CASES, DYN_CASES, DYN_FLAGS, PLACER_WEIGHTS, aff_placer_knobs,
+    make_dyn_inputs, make_inputs)
 
 
 def tree_to_numpy(tree):
@@ -56,6 +56,33 @@ def oracle_packed(out) -> np.ndarray:
         np.asarray(out[k]).astype(np.int32) for k in (
             "task_node", "task_mode", "task_gpu", "job_ready",
             "job_pipelined", "job_attempted")])
+
+
+def session_pair(build, conf_text):
+    """Run ``run_allocate`` in the JAX Session and in the port's (on the
+    CPU) on the cluster ``build(api)`` makes with each package's ``api``,
+    under the conf ``conf_text`` (None: the built-in default). Returns
+    (JAX outcome, port outcome, port Session); an outcome is the binds
+    (task uid -> node, GPU card), the held placements, the PodGroup phase
+    updates and the conditions."""
+    import volcano_tpu.api as japi
+    from volcano_tpu.framework import Session as JaxSession
+    from volcano_tpu.framework import parse_conf as jax_parse_conf
+
+    import volcano_tpu_torch.api as tapi
+    from volcano_tpu_torch.framework import Session, parse_conf
+
+    def outcome(ssn):
+        ssn.close()
+        return ({b.task_uid: (b.node_name, b.gpu_index) for b in ssn.binds},
+                dict(ssn.pipelined), dict(ssn.phase_updates),
+                dict(ssn.conditions))
+
+    jax_ssn = JaxSession(build(japi), jax_parse_conf(conf_text))
+    jax_ssn.run_allocate()
+    port_ssn = Session(build(tapi), parse_conf(conf_text), device="cpu")
+    port_ssn.run_allocate()
+    return outcome(jax_ssn), outcome(port_ssn), port_ssn
 
 
 def random_cluster(api, seed, n_nodes=6, n_jobs=5, gpus=False, taints=False):
@@ -109,83 +136,6 @@ def random_cluster(api, seed, n_nodes=6, n_jobs=5, gpus=False, taints=False):
             job.add_task(task)
         ci.add_job(job)
     return ci
-
-
-F32, I32 = np.float32, np.int32
-
-
-def make_inputs(seed, K=8, M=4, N=40, R=2, G=2, GR=2, P=3, gpu=True,
-                tight=False, releasing=False, big_gangs=False):
-    """Flat placer arguments (numpy) in the kernel's order. Values sit on
-    a 0.25 grid, so scores tie and capacity hits exact fits."""
-    rng = np.random.RandomState(seed)
-    KM = K * M
-
-    def grid(*shape, lo=0.0, hi=8.0):
-        return (rng.randint(int(lo * 4), int(hi * 4) + 1, size=shape)
-                / 4.0).astype(F32)
-
-    def flags(p, *shape):
-        return (rng.rand(*shape) < p).astype(I32)
-
-    resreq = grid(R, KM, lo=0.0, hi=3.0)
-    gpu_req = np.where(rng.rand(1, KM) < 0.5,
-                       rng.randint(1, 8, (1, KM)), 0).astype(F32)
-    pref = np.where(rng.rand(1, KM) < 0.2, rng.randint(0, N, (1, KM)),
-                    -1).astype(I32)
-    suffix = rng.randint(0, 3, (1, KM)).astype(I32)
-    tmpl = rng.randint(0, P, (1, KM)).astype(I32)
-    grp = np.where(rng.rand(1, KM) < 0.3, rng.randint(0, GR, (1, KM)),
-                   -1).astype(I32)
-    voln = np.where(rng.rand(1, KM) < 0.1, rng.randint(0, N, (1, KM)),
-                    -1).astype(I32)
-    volok = flags(0.95, 1, KM)
-    rev = flags(0.3, 1, KM)
-    active = flags(0.9, 1, KM)
-    ready0 = rng.randint(0, 2, (1, K)).astype(I32)
-    hi_min = 2 * M if big_gangs else M
-    minav = rng.randint(1, hi_min + 1, (1, K)).astype(I32)
-    canb = flags(0.5, 1, K)
-    secact = flags(0.9, 1, K)
-    istgt = flags(0.2, 1, K)
-    tstat = (rng.rand(P, N) < 0.85).astype(F32)
-    tscore = (rng.randint(0, 5, (P, N)) * 25).astype(F32)
-    nascore = (rng.randint(0, 3, (P, N)) * 10).astype(F32)
-    blocknr = flags(0.1, 1, N).astype(F32)
-    blockall = flags(0.05, 1, N).astype(F32)
-    bonus = (flags(0.3, 1, N) * 100).astype(F32)
-    locked = flags(0.1, 1, N).astype(F32)
-    orfeas = (rng.rand(GR, N) < 0.7).astype(F32)
-    alloc = grid(R, N, lo=2.0, hi=8.0)
-    alloc[rng.rand(R, N) < 0.05] = 0.0
-    idle = np.minimum(alloc, grid(R, N, hi=2.0 if tight else 8.0))
-    relmp = grid(R, N, lo=-1.0, hi=6.0 if releasing else 1.0)
-    if releasing:
-        idle = np.minimum(idle, grid(R, N, hi=0.5))
-    cnt = rng.randint(0, 5, (1, N)).astype(F32)
-    maxp = rng.randint(3, 9, (1, N)).astype(F32)
-    gidle0 = rng.randint(0, 16, (G, N)).astype(F32)
-    pipe = grid(R, N, hi=0.5)
-    pods = rng.randint(0, 2, (1, N)).astype(F32)
-    gpux = rng.randint(0, 3, (G, N)).astype(F32)
-    args = [resreq] + ([gpu_req] if gpu else []) + [
-        pref, suffix, tmpl, grp, voln, volok, rev, active,
-        ready0, minav, canb, secact, istgt,
-        tstat, tscore, nascore, blocknr, blockall, bonus, locked, orfeas,
-        relmp, alloc, cnt, maxp] + ([gidle0] if gpu else []) + [
-        idle, pipe, pods] + ([gpux] if gpu else [])
-    return args
-
-
-CASES = {
-    "gpu_on": dict(gpu=True),
-    "gpu_off": dict(gpu=False),
-    "gang_discard": dict(gpu=True, tight=True, big_gangs=True),
-    "pipelining_on_releasing": dict(gpu=False, releasing=True),
-    "three_resources": dict(gpu=True, R=3),
-    "one_section": dict(gpu=True, K=1, M=8),
-    "n_not_multiple_of_128": dict(gpu=True, N=200, M=6),
-}
 
 
 def affinity_cluster(api, seed, n_nodes=8, n_jobs=6):
@@ -251,3 +201,79 @@ HDRF_SCENARIO = (
     [("pg1", "root-sci", 10, "1", 2 ** 30),
      ("pg21", "root-eng-dev", 10, "1", 0),
      ("pg22", "root-eng-prod", 10, "0", 2 ** 30)])
+
+
+def pod_affinity_cluster(api, seed, n_nodes, n_jobs, zones=8, racks=32,
+                         tasks_lo=1, tasks_hi=4, running_pods=12, cpu="4",
+                         namespaces=False, expressions=False):
+    """tests/test_affinity._random_affinity_cluster, built with ``api``:
+    a zone/rack topology, a mixed required / preferred inter-pod workload
+    over 5 apps, and running pods that seed the static counts. With
+    ``namespaces`` some jobs live in a second namespace and some terms name
+    namespaces; with ``expressions`` some terms select by
+    ``match_expressions``, and preferred anti-affinity appears."""
+    rng = np.random.default_rng(seed)
+    res = api.Resource.from_resource_list({"cpu": cpu, "memory": "16Gi"})
+    ci = api.ClusterInfo()
+    ci.add_queue(api.QueueInfo("default", weight=1))
+    for i in range(n_nodes):
+        n = api.NodeInfo(f"n{i}", res.clone(), res.clone())
+        n.labels["zone"] = f"z{i % zones}"
+        n.labels["kubernetes.io/hostname"] = f"n{i}"
+        n.labels["rack"] = f"r{i % racks}"
+        ci.add_node(n)
+
+    def task(name, labels, ns="default", status=None):
+        t = api.TaskInfo(name, name, namespace=ns, labels=labels,
+                         resreq=api.Resource.from_resource_list(
+                             {"cpu": "1", "memory": "1Gi"}))
+        if status is not None:
+            t.status = status
+        return t
+
+    def term(key, app, weight=0):
+        kw = dict(topology_key=key, weight=weight)
+        u = rng.random() if (namespaces or expressions) else 1.0
+        if expressions and u < 0.3:
+            kw["match_expressions"] = [("app", "In", [app, "app4"])]
+        elif expressions and u < 0.4:
+            kw["match_expressions"] = [("app", "Exists", [])]
+        else:
+            kw["match_labels"] = {"app": app}
+        if namespaces and rng.random() < 0.3:
+            kw["namespaces"] = ["default", "other"]
+        return api.PodAffinityTerm(**kw)
+
+    apps = [f"app{i}" for i in range(5)]
+    for j in range(n_jobs):
+        ns = "other" if namespaces and j % 3 == 2 else "default"
+        job = api.JobInfo(f"{ns}/j{j}", namespace=ns, min_available=1,
+                          queue="default",
+                          pod_group_phase=api.PodGroupPhase.INQUEUE,
+                          creation_timestamp=float(j))
+        for i in range(int(rng.integers(tasks_lo, tasks_hi))):
+            app = apps[int(rng.integers(len(apps)))]
+            t = task(f"j{j}-t{i}", {"app": app}, ns)
+            r = rng.random()
+            if r < 0.25:
+                t.pod_anti_affinity = [term("rack", app)]
+            elif r < 0.5:
+                t.pod_affinity = [term("zone", app)]
+            elif r < 0.75:
+                t.pod_affinity_preferred = [term(
+                    "zone", apps[0], int(rng.integers(1, 20)))]
+            elif expressions and r < 0.85:
+                t.pod_anti_affinity_preferred = [term(
+                    "rack", app, int(rng.integers(1, 20)))]
+            job.add_task(t)
+        ci.add_job(job)
+    nodes = list(ci.nodes)
+    seedjob = api.JobInfo("default/seed", min_available=1, queue="default",
+                          pod_group_phase=api.PodGroupPhase.INQUEUE)
+    for i in range(running_pods):
+        t = task(f"s-{i}", {"app": apps[int(rng.integers(3))]},
+                 status=api.TaskStatus.RUNNING)
+        seedjob.add_task(t)
+        ci.nodes[nodes[int(rng.integers(len(nodes)))]].add_task(t)
+    ci.add_job(seedjob)
+    return ci

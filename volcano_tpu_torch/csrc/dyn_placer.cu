@@ -2,9 +2,10 @@
 // launch, the ordering keys recomputed after every gang commit.
 //
 // Replaces the Pallas TPU kernel volcano_tpu/ops/pallas_place.py
-// `_dyn_kernel` (built by `make_dyn_round_placer`), without the
-// pod-affinity extension. The plain PyTorch version of the same function,
-// the argument order and the key plan are in
+// `_dyn_kernel` (built by `make_dyn_round_placer`), with its pod-affinity
+// extension (`_read_aff_env`, `_aff_eval`, `_aff_commit`) when the launch
+// carries the affinity arguments. The plain PyTorch version of the same
+// function, the argument order and the key plan are in
 // volcano_tpu_torch/ops/dyn_placer.py.
 //
 // Design (simple and right first):
@@ -22,11 +23,13 @@
 //   previous column excluded, then a block min of the surviving indices.
 // - Pop 0 takes the launch's first candidate. Thread 0 checks the stop
 //   rules, then the M-slot section runs through the shared placement step
-//   of placement.cuh (block argmax, thread 0 commits), and thread 0
-//   finalizes the gang (keep, or restore the saved columns newest first),
-//   demotes kept-but-unready placements, and adds the committed resources,
-//   folded in slot order, to the job's and its queue's allocation once per
-//   pop (no atomics).
+//   of placement.cuh (with pod affinity: the affinity pass, the block
+//   argmax, thread 0 commits, the block adds the affinity rows), and
+//   thread 0 finalizes the gang (keep, or restore the saved columns newest
+//   first after the block took the section's affinity rows back), demotes
+//   kept-but-unready placements, and adds the committed resources, folded
+//   in slot order, to the job's and its queue's allocation once per pop (no
+//   atomics).
 //
 // What bounds it: as in round_placer.cu, a serial chain of dependent
 // block-wide reductions (per pop about ten key columns and M attempts)
@@ -44,9 +47,35 @@ constexpr int MAX_KEYS = 32;
 constexpr int KEY_NS = -1, KEY_QSHARE = -2, KEY_READY = -3, KEY_JSHARE = -4;
 constexpr int KEY_HCOL = -8;
 
+// pointer slots of dyn_placer_launch: the inputs in the order of
+// dyn_placer.DynArgs, then the outputs, then the scratch row pair
+enum Ptr {
+  P_RESREQ, P_GPU_REQ, P_PREF, P_SUFFIX, P_TMPL, P_GRP, P_VOLN, P_VOLOK,
+  P_REV, P_TIDOK, P_NBE, P_CAND, P_CSLOT, P_SKEYS, P_HCOLS, P_QID, P_QOH,
+  P_NSM, P_NSC, P_NSW, P_MINAV, P_RDY0, P_NPEND, P_ELIGS, P_VALIDF, P_CANB,
+  P_DES, P_QEX, P_TOTAL, P_KMAX, P_TGT, P_TSTAT, P_TSCORE, P_NASCORE,
+  P_BLOCKNR, P_BLOCKALL, P_BONUS, P_LOCKED, P_ORFEAS, P_RELMP, P_ALLOC,
+  P_CNT, P_MAXP, P_GIDLE0, P_LIVE, P_SKDOM, P_SK_SEL, P_ETA_SK, P_ETA_DOM,
+  P_STATIC_PREF, P_AFF_SK, P_ANTI, P_PREFSK, P_PREFW, P_SKM, P_ETM, P_SELM,
+  P_IDLE, P_PIPE, P_PODS, P_GPUX, P_AFF_CNT, P_AFF_TOT, P_ANTI_CNT, P_DONE,
+  P_POPPED, P_JREADY, P_JPIPE, P_CURSOR, P_ACOUNT, P_JALLOC, P_QALLOC,
+  // outputs
+  O_NODE, O_MODE, O_GPU, O_IDLE, O_PIPE, O_PODS, O_GPUX, O_AFF_CNT,
+  O_AFF_TOT, O_ANTI_CNT, O_DONE, O_POPPED, O_JREADY, O_JPIPE, O_CURSOR,
+  O_ACOUNT, O_JALLOC, O_QALLOC, O_POPS, O_PROG,
+  SCRATCH,
+  N_PTRS
+};
+
+// integer dimensions and flags of dyn_placer_launch; the key plan follows
+enum Dim { D_C, D_KP, D_M, D_N, D_R, D_G, D_GR, D_J, D_Q, D_S, D_NH, D_NKS,
+           D_GANG, D_PIPELINING, D_DRF_NS, D_NKEYS, D_AFF, D_SK, D_ETA, D_SEL,
+           D_A, D_B, D_PP, N_DIMS };
+
 struct Args {
   NodeEnv env;
   SlotEnv slots;
+  AffEnv aff;
   const int* suffix;   // [1, CM]
   const int* tidok;    // [1, CM]
   const int* nbe;      // [1, CM]
@@ -82,6 +111,9 @@ struct Args {
   const int* acount_in;
   const float* jalloc_in;
   const float* qalloc_in;
+  const float* cnt_in;
+  const float* tot_in;
+  const float* anti_in;
   // outputs
   int* node_o;
   int* mode_o;
@@ -96,7 +128,7 @@ struct Args {
   float* qalloc;  // [Q, R]
   int* pops_o;
   int* prog_o;
-  int C, KP, M, J, Q, S, NH, gang, drf_ns, nkeys;
+  int C, KP, M, J, Q, S, NH, gang, drf_ns, nkeys, has_aff;
   int keys[MAX_KEYS];
 };
 
@@ -177,7 +209,9 @@ __global__ void __launch_bounds__(BLOCK)
   const float INF = __int_as_float(0x7f800000);
   const int tid = threadIdx.x;
   const NodeEnv& e = a.env;
-  const int R = e.R, G = e.G, M = a.M, J = a.J, Q = a.Q, S = a.S;
+  const AffEnv& ae = a.aff;
+  const bool aff = a.has_aff != 0;
+  const int R = e.R, G = e.G, M = a.M, J = a.J, Q = a.Q, S = a.S, N = e.N;
   const int CM = a.C * M;
 
   extern __shared__ float smem[];
@@ -187,17 +221,24 @@ __global__ void __launch_bounds__(BLOCK)
   float* ns_alloc = qshare + Q;                  // [S, R]
   float* ns_share = ns_alloc + S * R;            // [S]
   __shared__ PickShared ps;
+  __shared__ AffShared as;
+  __shared__ float aff_red[2 * WARPS];
   __shared__ float red_f[WARPS];
   __shared__ int red_i[WARPS];
   __shared__ float out_f;
   __shared__ int out_i;
   __shared__ int p_stop, p_jstar, p_off, p_cur0, p_ready0, p_minav, p_canb,
       p_tgt;
-  __shared__ int s_stopped, s_broke, s_nalloc, s_npipe, s_nadv, s_nsave;
+  __shared__ int s_stopped, s_broke, s_nalloc, s_npipe, s_nadv, s_nsave,
+      s_keep, s_ready, s_pipelined;
   __shared__ int kept_any, prog, pops;
+
+  if (aff && tid == 0)
+    aff_bind(as, reinterpret_cast<int*>(ns_share + S), ae);
 
   // ---- copy the input state to the outputs, updated in place from here
   copy_state(e, a.idle_in, a.pipe_in, a.pods_in, a.gpux_in);
+  if (aff) copy_aff(ae, N, a.cnt_in, a.tot_in, a.anti_in);
   for (int j = tid; j < J; j += BLOCK) {
     a.done[j] = a.done_in[j];
     a.popped[j] = a.popped_in[j];
@@ -346,7 +387,8 @@ __global__ void __launch_bounds__(BLOCK)
       Task t;
       if (active) {
         t = load_task(a.slots, e, s);
-        pk = block_pick(e, t, p_tgt != 0, ps);
+        if (aff) aff_eval(ae, N, s, as, aff_red);
+        pk = block_pick(e, t, p_tgt != 0, ps, aff ? &ae : nullptr, &as);
       }
       if (tid == 0) {
         const bool do_alloc = active && pk.any_now;
@@ -368,18 +410,30 @@ __global__ void __launch_bounds__(BLOCK)
         const bool ready_aft = !a.gang || (p_ready0 + s_nalloc) >= p_minav;
         if (placed && ready_aft && a.suffix[s] > 0 && !p_canb) s_stopped = 1;
         if (active && !placed) s_broke = 1;
+        as.node = node;
+      }
+      if (aff && active) {
+        __syncthreads();
+        if (as.node >= 0) aff_apply(ae, N, s, as.node, 1.0f, as, true);
       }
       __syncthreads();
     }
 
     // ---- gang finalize and the key-state commit (thread 0) --------------
+    const int lo = off + p_cur0, hi = off + M;
+    if (tid == 0) {
+      s_ready = !a.gang || (p_ready0 + s_nalloc) >= p_minav;
+      s_pipelined = (p_ready0 + s_nalloc + s_npipe) >= p_minav && !s_ready;
+      s_keep = s_ready || s_pipelined;
+    }
+    __syncthreads();
+    if (aff && !s_keep)
+      for (int s = hi - 1; s >= lo; --s)
+        if (a.mode_o[s] != MODE_NONE)
+          aff_apply(ae, N, s, a.node_o[s], -1.0f, as, false);
     if (tid == 0) {
       const int jstar = p_jstar;
-      const bool ready = !a.gang || (p_ready0 + s_nalloc) >= p_minav;
-      const bool pipelined =
-          (p_ready0 + s_nalloc + s_npipe) >= p_minav && !ready;
-      const bool keep = ready || pipelined;
-      const int lo = off + p_cur0, hi = off + M;
+      const bool ready = s_ready, pipelined = s_pipelined, keep = s_keep;
       if (!keep) {
         restore(e, save, s_nsave);
         for (int s = lo; s < hi; ++s) {
@@ -425,15 +479,15 @@ __global__ void __launch_bounds__(BLOCK)
 
 }  // namespace
 
-// ptrs: the 56 inputs then the 17 outputs in the order of
-// dyn_placer.DynArgs (null where a part is off); dims: C, KP, M, N, R, G,
-// GR, J, Q, S, NH, NKS, gang, pipelining, drf_ns, nkeys, then the key
-// plan; weights: binpack, least, most, balanced.
+// ptrs: the inputs in the order of dyn_placer.DynArgs, then the 20
+// outputs, then the [2, N] scratch (null where a part is off); dims: see
+// Dim, then the key plan; weights: binpack, least, most, balanced, pod
+// affinity.
 extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
                                  const float* weights, void* stream) {
-  const int C = dims[0], KP = dims[1], M = dims[2], N = dims[3], R = dims[4],
-            G = dims[5], J = dims[7], Q = dims[8], S = dims[9],
-            nkeys = dims[15];
+  const int C = dims[D_C], KP = dims[D_KP], M = dims[D_M], N = dims[D_N],
+            R = dims[D_R], G = dims[D_G], J = dims[D_J], Q = dims[D_Q],
+            S = dims[D_S], nkeys = dims[D_NKEYS], has_aff = dims[D_AFF];
   if (R < 1 || R > MAX_R || C < 1 || M < 1 || N < 1 || G < 0 || J < 1 ||
       J > 32 * BLOCK || Q < 1 || S < 0 || nkeys < 1 || nkeys > MAX_KEYS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -442,75 +496,95 @@ extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
   auto FO = [&](int i) { return static_cast<float*>(ptrs[i]); };
   auto IO = [&](int i) { return static_cast<int*>(ptrs[i]); };
   Args a;
-  // inputs, in DynArgs order
-  a.slots = SlotEnv{F(0), F(1), I(2), I(4), I(5), I(6), I(7), I(8), C * M};
-  a.suffix = I(3);
-  a.tidok = I(9);
-  a.nbe = I(10);
-  a.cand = I(11);
-  a.cslot = I(12);
-  a.skeys = F(13);
-  a.hcols = F(14);
-  a.qid = I(15);
-  a.qoh = F(16);
-  a.nsm = F(17);
-  a.nsc = F(18);
-  a.nsw = F(19);
-  a.minav = I(20);
-  a.rdy0 = I(21);
-  a.npend = I(22);
-  a.eligs = I(23);
-  a.validf = F(24);
-  a.canb = I(25);
-  a.des = F(26);
-  a.qex = F(27);
-  a.total = F(28);
-  a.kmax = I(29);
-  a.tgt = I(30);
-  // outputs follow the 56 inputs
-  a.env = NodeEnv{F(31), F(32), F(33), F(34), F(35),  F(36),
-                  F(37), F(38), F(39), F(40), F(41),  F(42),
-                  F(43), FO(59), FO(60), FO(61), FO(62), N,
-                  R,     G,     dims[13], weights[0], weights[1], weights[2],
+  a.slots = SlotEnv{F(P_RESREQ), F(P_GPU_REQ), I(P_PREF), I(P_TMPL),
+                    I(P_GRP), I(P_VOLN), I(P_VOLOK), I(P_REV), C * M};
+  a.suffix = I(P_SUFFIX);
+  a.tidok = I(P_TIDOK);
+  a.nbe = I(P_NBE);
+  a.cand = I(P_CAND);
+  a.cslot = I(P_CSLOT);
+  a.skeys = F(P_SKEYS);
+  a.hcols = F(P_HCOLS);
+  a.qid = I(P_QID);
+  a.qoh = F(P_QOH);
+  a.nsm = F(P_NSM);
+  a.nsc = F(P_NSC);
+  a.nsw = F(P_NSW);
+  a.minav = I(P_MINAV);
+  a.rdy0 = I(P_RDY0);
+  a.npend = I(P_NPEND);
+  a.eligs = I(P_ELIGS);
+  a.validf = F(P_VALIDF);
+  a.canb = I(P_CANB);
+  a.des = F(P_DES);
+  a.qex = F(P_QEX);
+  a.total = F(P_TOTAL);
+  a.kmax = I(P_KMAX);
+  a.tgt = I(P_TGT);
+  a.env = NodeEnv{F(P_TSTAT), F(P_TSCORE), F(P_NASCORE), F(P_BLOCKNR),
+                  F(P_BLOCKALL), F(P_BONUS), F(P_LOCKED), F(P_ORFEAS),
+                  F(P_RELMP), F(P_ALLOC), F(P_CNT), F(P_MAXP), F(P_GIDLE0),
+                  FO(O_IDLE), FO(O_PIPE), FO(O_PODS), FO(O_GPUX), N, R, G,
+                  dims[D_PIPELINING], weights[0], weights[1], weights[2],
                   weights[3]};
-  a.idle_in = F(44);
-  a.pipe_in = F(45);
-  a.pods_in = F(46);
-  a.gpux_in = F(47);
-  a.done_in = I(48);
-  a.popped_in = I(49);
-  a.jready_in = I(50);
-  a.jpipe_in = I(51);
-  a.cursor_in = I(52);
-  a.acount_in = I(53);
-  a.jalloc_in = F(54);
-  a.qalloc_in = F(55);
-  a.node_o = IO(56);
-  a.mode_o = IO(57);
-  a.gpu_o = IO(58);
-  a.done = IO(63);
-  a.popped = IO(64);
-  a.jready = IO(65);
-  a.jpipe = IO(66);
-  a.cursor = IO(67);
-  a.acount = IO(68);
-  a.jalloc = FO(69);
-  a.qalloc = FO(70);
-  a.pops_o = IO(71);
-  a.prog_o = IO(72);
+  a.aff = AffEnv{F(P_LIVE), I(P_SKDOM), I(P_SK_SEL), I(P_ETA_SK),
+                 I(P_ETA_DOM), F(P_STATIC_PREF), I(P_AFF_SK), I(P_ANTI),
+                 I(P_PREFSK), F(P_PREFW), F(P_SKM), F(P_ETM), F(P_SELM),
+                 FO(O_AFF_CNT), FO(O_AFF_TOT), FO(O_ANTI_CNT), FO(SCRATCH),
+                 FO(SCRATCH) + N, dims[D_SK], dims[D_ETA], dims[D_SEL],
+                 dims[D_A], dims[D_B], dims[D_PP], C * M, weights[4]};
+  a.idle_in = F(P_IDLE);
+  a.pipe_in = F(P_PIPE);
+  a.pods_in = F(P_PODS);
+  a.gpux_in = F(P_GPUX);
+  a.cnt_in = F(P_AFF_CNT);
+  a.tot_in = F(P_AFF_TOT);
+  a.anti_in = F(P_ANTI_CNT);
+  a.done_in = I(P_DONE);
+  a.popped_in = I(P_POPPED);
+  a.jready_in = I(P_JREADY);
+  a.jpipe_in = I(P_JPIPE);
+  a.cursor_in = I(P_CURSOR);
+  a.acount_in = I(P_ACOUNT);
+  a.jalloc_in = F(P_JALLOC);
+  a.qalloc_in = F(P_QALLOC);
+  a.node_o = IO(O_NODE);
+  a.mode_o = IO(O_MODE);
+  a.gpu_o = IO(O_GPU);
+  a.done = IO(O_DONE);
+  a.popped = IO(O_POPPED);
+  a.jready = IO(O_JREADY);
+  a.jpipe = IO(O_JPIPE);
+  a.cursor = IO(O_CURSOR);
+  a.acount = IO(O_ACOUNT);
+  a.jalloc = FO(O_JALLOC);
+  a.qalloc = FO(O_QALLOC);
+  a.pops_o = IO(O_POPS);
+  a.prog_o = IO(O_PROG);
   a.C = C;
   a.KP = KP;
   a.M = M;
   a.J = J;
   a.Q = Q;
   a.S = S;
-  a.NH = dims[10];
-  a.gang = dims[12];
-  a.drf_ns = dims[14];
+  a.NH = dims[D_NH];
+  a.gang = dims[D_GANG];
+  a.drf_ns = dims[D_DRF_NS];
   a.nkeys = nkeys;
-  for (int c = 0; c < MAX_KEYS; ++c) a.keys[c] = c < nkeys ? dims[16 + c] : 0;
+  a.has_aff = has_aff;
+  for (int c = 0; c < MAX_KEYS; ++c)
+    a.keys[c] = c < nkeys ? dims[N_DIMS + c] : 0;
+  int list_ints = 0;
+  if (has_aff) {
+    const AffEnv& ae = a.aff;
+    if (ae.SK < 1 || ae.ETA < 1 || ae.SEL < 1 || ae.A < 1 || ae.B < 1 ||
+        ae.PP < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    list_ints = aff_list_ints(ae.SK, ae.ETA, ae.SEL, ae.A, ae.B, ae.PP);
+  }
   const size_t smem =
-      static_cast<size_t>(M * (2 * R + G + 2) + 2 * Q + S * (R + 1)) *
+      static_cast<size_t>(M * (2 * R + G + 2) + 2 * Q + S * (R + 1) +
+                          list_ints) *
       sizeof(float);
   dyn_placer_kernel<<<1, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

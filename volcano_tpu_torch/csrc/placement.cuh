@@ -3,7 +3,9 @@
 //
 // Port of volcano_tpu/ops/pallas_place.py `_make_attempt` (feasibility ->
 // score -> lowest-index argmax -> commit) and `_dyn_score`, used by
-// round_placer.cu (`_batch_kernel`) and dyn_placer.cu (`_dyn_kernel`).
+// round_placer.cu (`_batch_kernel`) and dyn_placer.cu (`_dyn_kernel`), and
+// of its pod-affinity extension (`_read_aff_env`, `_aff_eval`,
+// `_aff_commit`, pallas_place.py:186-331).
 //
 // - The node-axis state (idle, pipe [R, N], pods [1, N], GPU cards [G, N])
 //   lives in global memory (L2 at the sizes the cycle runs).
@@ -16,6 +18,21 @@
 // - restore (thread 0 only): puts saved columns back, newest first, when a
 //   gang is discarded. Subtracting back would not do: (a - r) + r != a in
 //   float32.
+// - Pod affinity (AffEnv, when the cycle compiles it in): the live counts
+//   cnt [SK, N], tot [SK, 1] and anti [ETA, N] are global memory too.
+//   Each attempt first runs aff_eval: thread 0 lists the task's terms in
+//   shared memory (its required pairs, own anti terms, preferred pairs, and
+//   only the ETA / SEL rows the task matches: the rows it does not match
+//   add `false` or 0 * x, and every sum is integer-valued, so skipping them
+//   changes no bit), then one block pass computes each node's affinity mask
+//   and raw preferred score into a scratch row and reduces the raw score's
+//   max and min over the live nodes. block_pick, the second pass, ANDs the
+//   mask into both views and adds weight * the min-max normalised score
+//   last. aff_apply adds (or, on a gang discard, takes back) one placement's
+//   domain-membership rows, block-wide. The discard takes back instead of
+//   copying back: the counts are integer-valued float32 far below 2^24,
+//   so (c + 1) - 1 == c exactly, and an undo costs what its commit cost,
+//   where a copy-back would save SK x N + ETA x N floats every section.
 //
 // Bit-exactness with the reference: build with --fmad=false and without
 // fast math, so no multiply-add is contracted and division and sqrt are
@@ -182,6 +199,224 @@ __device__ __forceinline__ void take_better(float& bs, int& bi, float s,
   }
 }
 
+// ---------------------------------------------------------------------------
+// pod affinity (kernel 2 of the reference: pallas_place.py:186-331)
+// ---------------------------------------------------------------------------
+
+// static affinity maps, the slot tables of one launch, the live counts
+struct AffEnv {
+  const float* live;         // [1, N] valid & schedulable nodes
+  const int* skdom;          // [SK, N] node's domain per (sel, key) pair
+  const int* sk_sel;         // [SK, 1]
+  const int* eta_sk;         // [1, ETA]
+  const int* eta_dom;        // [ETA, N]
+  const float* static_pref;  // [SEL, N] symmetric preferred map
+  const int* aff_sk;         // [A, S] required-affinity pair slots
+  const int* anti;           // [B, S] own required-anti term slots
+  const int* prefsk;         // [PP, S] preferred pair slots
+  const float* prefw;        // [PP, S] preferred weights
+  const float* skm;          // [SK, S] task matches the pair's selector
+  const float* etm;          // [ETA, S] task matches the anti term
+  const float* selm;         // [SEL, S] task matches the selector
+  float* cnt;                // [SK, N] live
+  float* tot;                // [SK, 1] live
+  float* anti_cnt;           // [ETA, N] live
+  float* raw;                // [N] scratch: raw preferred score
+  float* ok;                 // [N] scratch: affinity mask (1 / 0)
+  int SK, ETA, SEL, A, B, PP, S;
+  float weight;              // pod_affinity_weight
+};
+
+// ints of dynamic shared memory the per-attempt term lists take (host side:
+// the launchers size the dynamic shared memory with it)
+inline int aff_list_ints(int SK, int ETA, int SEL, int A, int B, int PP) {
+  return 2 * A + 2 * B + ETA + 2 * PP + 2 * SEL + SK;
+}
+
+// one attempt's term lists (dynamic shared memory) and its scalars
+struct AffShared {
+  int* req;      // [A] required pairs
+  int* esc;      // [A] first-pod escape open (tot == 0 and task matches)
+  int* own_e;    // [B] own anti terms
+  int* own_sk;   // [B] their pair row max(eta_sk, 0)
+  int* sym;      // [ETA] anti terms the task matches
+  int* pp_sk;    // [PP] preferred pair, -1 when the slot is empty
+  float* pp_w;   // [PP]
+  int* sel;      // [SEL] selectors the task matches
+  float* sel_w;  // [SEL] their match value
+  int* mine;     // [SK] pairs whose counts a placement of the task adds to
+  int nreq, nown, nsym, nsel, nmine;
+  float mn, q;   // normalisation: (raw - mn) * q when span > 0
+  int span_pos;
+  int node;      // the attempt's placement, -1 none
+};
+
+__device__ inline void aff_bind(AffShared& as, int* base, const AffEnv& ae) {
+  as.req = base;
+  as.esc = as.req + ae.A;
+  as.own_e = as.esc + ae.A;
+  as.own_sk = as.own_e + ae.B;
+  as.sym = as.own_sk + ae.B;
+  as.pp_sk = as.sym + ae.ETA;
+  as.pp_w = reinterpret_cast<float*>(as.pp_sk + ae.PP);
+  as.sel = reinterpret_cast<int*>(as.pp_w + ae.PP);
+  as.sel_w = reinterpret_cast<float*>(as.sel + ae.SEL);
+  as.mine = reinterpret_cast<int*>(as.sel_w + ae.SEL);
+}
+
+// Thread 0 only: the term lists of slot s against the live totals.
+__device__ void aff_lists(const AffEnv& ae, int s, AffShared& as) {
+  const int S = ae.S;
+  as.nreq = 0;
+  for (int a = 0; a < ae.A; ++a) {
+    const int sk = ae.aff_sk[a * S + s];
+    if (sk < 0) continue;
+    as.req[as.nreq] = sk;
+    as.esc[as.nreq] = ae.tot[sk] == 0.0f && ae.skm[sk * S + s] > 0.0f;
+    ++as.nreq;
+  }
+  as.nown = 0;
+  for (int b = 0; b < ae.B; ++b) {
+    const int e = ae.anti[b * S + s];
+    if (e < 0) continue;
+    as.own_e[as.nown] = e;
+    as.own_sk[as.nown] = ae.eta_sk[e] > 0 ? ae.eta_sk[e] : 0;
+    ++as.nown;
+  }
+  as.nsym = 0;
+  for (int e = 0; e < ae.ETA; ++e)
+    if (ae.etm[e * S + s] > 0.0f) as.sym[as.nsym++] = e;
+  for (int p = 0; p < ae.PP; ++p) {
+    as.pp_sk[p] = ae.prefsk[p * S + s];
+    as.pp_w[p] = ae.prefw[p * S + s];
+  }
+  as.nsel = 0;
+  for (int c = 0; c < ae.SEL; ++c) {
+    const float m = ae.selm[c * S + s];
+    if (m != 0.0f) {
+      as.sel[as.nsel] = c;
+      as.sel_w[as.nsel] = m;
+      ++as.nsel;
+    }
+  }
+  as.nmine = 0;
+  for (int k = 0; k < ae.SK; ++k)
+    if (ae.sk_sel[k] >= 0 && ae.skm[k * S + s] > 0.0f) as.mine[as.nmine++] = k;
+}
+
+// Called by every thread: the first pass of an attempt. Writes each node's
+// affinity mask and raw preferred score to the scratch rows and leaves the
+// normalisation in `as` (pallas_place._aff_eval).
+__device__ void aff_eval(const AffEnv& ae, int N, int s, AffShared& as,
+                         float* red) {
+  const float BIG = static_cast<float>(3.4e38);
+  const float EPS_DIV = static_cast<float>(1e-9);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) aff_lists(ae, s, as);
+  __syncthreads();
+  float mx = -BIG, mn = BIG;
+  for (int i = threadIdx.x; i < N; i += BLOCK) {
+    bool ok = true;
+    for (int k = 0; k < as.nreq; ++k) {
+      const int sk = as.req[k];
+      const bool dom = ae.skdom[sk * N + i] >= 0;
+      ok = ok && dom && (ae.cnt[sk * N + i] > 0.0f || as.esc[k]);
+    }
+    for (int k = 0; k < as.nown; ++k)
+      ok = ok && !(ae.cnt[as.own_sk[k] * N + i] > 0.0f &&
+                   ae.eta_dom[as.own_e[k] * N + i] >= 0);
+    for (int k = 0; k < as.nsym; ++k) {
+      const int e = as.sym[k];
+      ok = ok && !(ae.anti_cnt[e * N + i] > 0.0f && ae.eta_dom[e * N + i] >= 0);
+    }
+    float raw = 0.0f;
+    for (int p = 0; p < ae.PP; ++p) {
+      const int sk = as.pp_sk[p] > 0 ? as.pp_sk[p] : 0;
+      const float row = (as.pp_sk[p] >= 0 && ae.skdom[sk * N + i] >= 0)
+                            ? as.pp_w[p] * ae.cnt[sk * N + i]
+                            : 0.0f;
+      raw = p == 0 ? row : raw + row;
+    }
+    float st = 0.0f;
+    for (int k = 0; k < as.nsel; ++k)
+      st = st + as.sel_w[k] * ae.static_pref[as.sel[k] * N + i];
+    raw = raw + st;
+    ae.raw[i] = raw;
+    ae.ok[i] = ok ? 1.0f : 0.0f;
+    if (ae.live[i] > 0.0f) {
+      mx = fmaxf(mx, raw);
+      mn = fminf(mn, raw);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, off));
+    mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, off));
+  }
+  if (lane == 0) {
+    red[warp] = mx;
+    red[WARPS + warp] = mn;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    mx = red[lane];
+    mn = red[WARPS + lane];
+    for (int off = 16; off > 0; off >>= 1) {
+      mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, off));
+      mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, off));
+    }
+    if (lane == 0) {
+      const float span = mx - mn;
+      as.mn = mn;
+      as.q = 100.0f / fmaxf(span, EPS_DIV);
+      as.span_pos = span > 0.0f;
+    }
+  }
+  __syncthreads();
+}
+
+// Called by every thread: add `delta` (1 on a placement, -1 to take it back
+// on a gang discard) to the domain-membership rows of slot s's task placed
+// on `node` (pallas_place._aff_commit). Adds to members only: the
+// reference's + 0.0 elsewhere changes no count (counts are never -0.0).
+// `listed`: the term lists in `as` are slot s's already (a commit right
+// after the slot's aff_eval).
+__device__ void aff_apply(const AffEnv& ae, int N, int s, int node,
+                          float delta, AffShared& as, bool listed) {
+  if (!listed) {
+    if (threadIdx.x == 0) aff_lists(ae, s, as);
+    __syncthreads();
+  }
+  for (int k = 0; k < as.nmine; ++k) {
+    const int sk = as.mine[k];
+    const int* dom = ae.skdom + sk * N;
+    const int d = dom[node];
+    if (d < 0) continue;
+    float* row = ae.cnt + sk * N;
+    for (int i = threadIdx.x; i < N; i += BLOCK)
+      if (dom[i] == d) row[i] = row[i] + delta;
+    if (threadIdx.x == 0) ae.tot[sk] = ae.tot[sk] + delta;
+  }
+  for (int k = 0; k < as.nown; ++k) {
+    const int e = as.own_e[k];
+    const int* dom = ae.eta_dom + e * N;
+    const int d = dom[node];
+    if (d < 0) continue;
+    float* row = ae.anti_cnt + e * N;
+    for (int i = threadIdx.x; i < N; i += BLOCK)
+      if (dom[i] == d) row[i] = row[i] + delta;
+  }
+  __syncthreads();
+}
+
+// Block-wide copy of the input affinity counts into the live outputs.
+__device__ void copy_aff(const AffEnv& ae, int N, const float* cnt_in,
+                         const float* tot_in, const float* anti_in) {
+  for (int j = threadIdx.x; j < ae.SK * N; j += BLOCK) ae.cnt[j] = cnt_in[j];
+  for (int j = threadIdx.x; j < ae.SK; j += BLOCK) ae.tot[j] = tot_in[j];
+  for (int j = threadIdx.x; j < ae.ETA * N; j += BLOCK)
+    ae.anti_cnt[j] = anti_in[j];
+}
+
 struct PickShared {
   float red_s[2][WARPS];
   int red_i[2][WARPS];
@@ -194,9 +429,12 @@ struct Pick {
 };
 
 // Called by every thread of the block with the same task: the best node of
-// both views and whether any node is feasible in each.
+// both views and whether any node is feasible in each. With `ae` (pod
+// affinity on), after aff_eval: the affinity mask joins both views and
+// weight * the normalised preferred score joins the score, last.
 __device__ Pick block_pick(const NodeEnv& e, const Task& t, bool is_tgt,
-                           PickShared& ps) {
+                           PickShared& ps, const AffEnv* ae = nullptr,
+                           const AffShared* as = nullptr) {
   const float EPS_FIT = static_cast<float>(1e-5);
   const float NEG = static_cast<float>(-1e30);
   const int tid = threadIdx.x;
@@ -230,6 +468,7 @@ __device__ Pick block_pick(const NodeEnv& e, const Task& t, bool is_tgt,
       fit_now = fit_now && t.rr[r] <= idle_r + EPS_FIT;
       fit_fut = fit_fut && t.rr[r] <= fut_r + EPS_FIT;
     }
+    if (ae != nullptr) shared = shared && ae->ok[i] > 0.0f;
     const bool feas[2] = {shared && fit_now, shared && fit_fut};
     float sc = NEG;
     if (feas[0] || feas[1]) {
@@ -237,6 +476,10 @@ __device__ Pick block_pick(const NodeEnv& e, const Task& t, bool is_tgt,
       sc = sc + e.tscore[t.tmpl * N + i];
       sc = sc + (e.nascore[t.tmpl * N + i] + (t.rev ? e.bonus[i] : 0.0f));
       sc = sc + ((t.pref >= 0 && i == t.pref) ? 100.0f : 0.0f);
+      if (ae != nullptr) {
+        const float norm = as->span_pos ? (ae->raw[i] - as->mn) * as->q : 0.0f;
+        sc = sc + ae->weight * norm;
+      }
     }
     for (int v = 0; v < 2; ++v) {
       take_better(best[v], bidx[v], feas[v] ? sc : NEG, i);

@@ -30,7 +30,7 @@ import numpy as np
 from ..api import ClusterInfo, PodGroupPhase, TaskStatus, gpu_request_of
 from ..api.resource import Resource
 from ..arrays import pack, to_device
-from ..arrays.affinity import AffinityArrays
+from ..arrays.affinity import build_affinity
 from ..arrays.hierarchy import build_hierarchy
 from ..ops.allocate_scan import (MODE_ALLOCATED, AllocateConfig,
                                  AllocateExtras, derive_batching,
@@ -89,9 +89,11 @@ class Session:
         T = self.snap.tasks.status.shape[0]
         Q = self.snap.queues.weight.shape[0]
         J = self.snap.jobs.valid.shape[0]
-        # no inter-pod terms: their encoder comes with pod affinity
-        # (ROADMAP queue 1 item 4)
-        self.affinity = AffinityArrays.neutral(N, T)
+        # inter-pod affinity encoding rides the snapshot (the predicates
+        # plugin's InterPodAffinity state, predicates.go:116-160)
+        t0 = time.perf_counter()
+        self.affinity = build_affinity(self.cluster, self.maps, N, T)
+        self.stats["affinity_ms"] = (time.perf_counter() - t0) * 1000
         # hdrf tree topology (the drf plugin's hierarchicalRoot,
         # drf.go:128-147), static per snapshot
         self.hierarchy = build_hierarchy(self.cluster, self.maps, Q, J)

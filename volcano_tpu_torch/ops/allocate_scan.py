@@ -22,7 +22,11 @@ Two paths, chosen by :func:`derive_batching`:
 
 Each round launches one placer and folds its outputs back into the per-job
 state; the loop runs until no job is eligible, with one host readback per
-round. The placers run their CUDA kernels on CUDA tensors and their plain
+round. With pod affinity both placers carry the live inter-pod affinity
+counts from round to round (``arrays/affinity.py``'s node-space encoding,
+split as counts [SK, N], cluster totals [SK, 1] and anti counts [ETA, N]),
+and each launch gathers the task-side term tables of its slots on the
+device. The placers run their CUDA kernels on CUDA tensors and their plain
 versions on CPU tensors. Decisions are bit-identical to the reference's
 scan path and its Pallas kernels.
 
@@ -115,7 +119,9 @@ class AllocateConfig:
     taint_prefer_weight: float = 1.0     # nodeorder tainttoleration.weight
     enable_pipelining: bool = True       # allow placement on FutureIdle
     enable_gang: bool = True             # gang all-or-nothing semantics
-    enable_pod_affinity: bool = False    # InterPodAffinity (not ported yet)
+    #: InterPodAffinity predicate + batch scorer (predicates.go:261-273,
+    #: nodeorder.go:273-306), carried through both placers
+    enable_pod_affinity: bool = False
     enable_host_ports: bool = False      # k8s NodePorts (not ported yet)
     pod_affinity_weight: float = 1.0     # nodeorder interpodaffinity.weight
     enable_hdrf: bool = False            # hdrf queue ordering (drf.go:230-360)
@@ -239,10 +245,9 @@ def _check_supported(cfg: AllocateConfig) -> None:
     """Raise for the configurations this slice of the port does not carry,
     naming the ROADMAP item that ports each."""
     todo = [
-        (cfg.enable_pod_affinity, "enable_pod_affinity",
-         "ROADMAP queue 1 item 4, pod affinity and host ports"),
         (cfg.enable_host_ports, "enable_host_ports",
-         "ROADMAP queue 1 item 4, pod affinity and host ports"),
+         "ROADMAP queue 1 item 4b, host ports: the reference runs them on "
+         "its scan path only, so they need a per-task path in the port"),
         (cfg.telemetry, "telemetry", "ROADMAP queue 1 item 7, telemetry "
          "and wavefront"),
         (cfg.wave_width > 1, "wave_width > 1", "ROADMAP queue 1 item 7, "
@@ -260,6 +265,12 @@ def _check_supported(cfg: AllocateConfig) -> None:
             "batch_jobs > 1 on the static-keys path requires static "
             "ordering keys (no drf/hdrf dynamic ordering); use "
             "batch_rounds (derive_batching sets it) for dynamic keys")
+
+
+def gather_slot_tables(tables, flat_ids):
+    """The columns of a launch's slots from per-task tables [.., T], on
+    the tables' device (the affinity term tables of the placers)."""
+    return [t.index_select(1, flat_ids).contiguous() for t in tables]
 
 
 def _dyn_static_args(cfg, snap, extras, keys_static):
@@ -371,6 +382,28 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None):
             node_env.append((nodes.gpu_memory - nodes.gpu_used).T.contiguous())
         relmp_t = node_env[8]
         node_live = nodes.valid & nodes.schedulable
+        # pod affinity: the static maps in the placers' layout, the
+        # task-side term tables gathered per launch ([.., T], task axis
+        # last), and the live counts (all empty when off)
+        aff_static, aff_tables, aff_state = [], [], []
+        if cfg.enable_pod_affinity:
+            afa = extras.affinity
+            aff_static = [node_live.to(f32)[None, :],
+                          afa.sk_domain.contiguous(),
+                          afa.sk_sel[:, None].contiguous(),
+                          afa.eta_sk[None, :].contiguous(),
+                          afa.eta_domain.contiguous(),
+                          afa.static_pref.contiguous()]
+            aff_tables = [t.contiguous() for t in (
+                afa.task_aff_sk.T, afa.task_anti_term.T, afa.task_pref_sk.T,
+                afa.task_pref_w.T,
+                afa.task_match[afa.sk_sel.clamp_min(0).long()].to(f32),
+                ((afa.eta_sel >= 0)[:, None]
+                 & afa.task_match[afa.eta_sel.clamp_min(0).long()]).to(f32),
+                afa.task_match.to(f32))]
+            aff_state = [afa.cnt0[:, :N].contiguous(),
+                         afa.cnt0[:, N:].contiguous(),
+                         afa.anti_cnt0.contiguous()]
 
         # cheapest pending request per job, per dim: the give-up bound
         tbl = jobs.task_table.clamp_min(0).long()
@@ -541,10 +574,12 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None):
                 args += dyn_static["jobs"] + [
                     torch.full((1, 1), kp_req, dtype=i32, device=dev),
                     dyn_static["tgt"]]
-                args += node_env
+                args += node_env + aff_static + gather_slot_tables(
+                    aff_tables, flat_ids)
                 args += [idle, pipe, pods]
                 if cfg.enable_gpu:
                     args.append(gpux)
+                args += aff_state
                 args += [
                     (job_done[:J] | give_up).to(i32)[None, :],
                     (job_popped[:J] | give_up).to(i32)[None, :],
@@ -559,6 +594,8 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None):
                 idle, pipe, pods = outs[3:6]
                 if cfg.enable_gpu:
                     gpux = outs[6]
+                if cfg.enable_pod_affinity:
+                    aff_state = list(outs[-13:-10])
                 (done_o, popped_o, ready_o, pipe_o, cursor_o, acount_o,
                  jalloc_o, qalloc_o, pops_o, prog_o) = outs[-10:]
                 placed_m = mode_s.reshape(K, M) != MODE_NONE
@@ -609,14 +646,18 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None):
                 secact.to(i32)[None, :],
                 istgt.to(i32)[None, :],
             ]
-            args += node_env
+            args += node_env + aff_static + gather_slot_tables(
+                aff_tables, flat_ids)
             args += [idle, pipe, pods]
             if cfg.enable_gpu:
                 args.append(gpux)
+            args += aff_state
             outs = place(cfg, K, M, args)
             node_s, mode_s, gpu_s, idle, pipe, pods = outs[:6]
             if cfg.enable_gpu:
                 gpux = outs[6]
+            if cfg.enable_pod_affinity:
+                aff_state = list(outs[-3:])
 
             node_km = node_s.reshape(K, M)
             mode_km = mode_s.reshape(K, M)

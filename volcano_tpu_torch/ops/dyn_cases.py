@@ -1,13 +1,23 @@
-"""Small built inputs of the dynamic-key placer (``ops/dyn_placer.py``),
-one case per rule it must follow: gang discard and demotion, a
-zero-deserved queue that flips to overused on its first commit, drf with
-3 namespaces, GPU requests, the hdrf guard, a short pop budget and padded
-candidates.
+"""Small built inputs of the placers, one case per rule they must follow.
 
-The CPU tests hold the plain version against the reference's Pallas
-kernel in interpret mode on these inputs, and ``chip_smoke.py`` holds the
-CUDA kernel against the plain version on them; both build them here, from
-one definition. Numpy only.
+- :func:`make_inputs` and :data:`CASES`: the round placer
+  (``ops/round_placer.py``): GPU cards on and off, gang discard, pipelining
+  on releasing capacity, three resources, one section, N not a multiple of
+  128.
+- :func:`make_dyn_inputs` and :data:`DYN_CASES`: the dynamic-key placer
+  (``ops/dyn_placer.py``): gang discard and demotion, a zero-deserved queue
+  that flips to overused on its first commit, drf with 3 namespaces, GPU
+  requests, the hdrf guard, a short pop budget and padded candidates.
+- :func:`make_aff_inputs` and :data:`AFF_CASES`: the pod-affinity step of
+  both (``aff=`` of make_inputs and make_dyn_inputs): the first-pod
+  escape, own and symmetric required anti-affinity, negative preferred
+  weights, no live node, and a gang discard that must take the counts
+  back.
+
+The CPU tests hold the plain versions against the reference's Pallas
+kernels in interpret mode on these inputs, and ``chip_smoke.py`` holds the
+CUDA kernels against the plain versions on them; both build them here,
+from one definition. Numpy only.
 """
 
 from __future__ import annotations
@@ -19,6 +29,180 @@ F32, I32 = np.float32, np.int32
 #: score weights of the placer cases: every score family on
 PLACER_WEIGHTS = dict(binpack_weight=0.7, least_allocated_weight=1.0,
                       most_allocated_weight=0.5, balanced_weight=1.0)
+
+#: pod-affinity step cases: knobs of make_aff_inputs; "gang_discard" also
+#: sets the placers' big_gangs knob (see aff_placer_knobs)
+AFF_CASES = {
+    "mixed": dict(),
+    "first_pod_escape": dict(escape=True),
+    "anti_own_and_symmetric": dict(anti=True),
+    "negative_preferred": dict(neg_pref=True),
+    "no_live_node": dict(no_live=True),
+    "gang_discard": dict(anti=True, escape=True),
+}
+
+#: the names of the affinity arguments before the capacity state, and of
+#: the live state after it (the order of pallas_place._read_aff_env)
+AFF_ENV = ("live", "skdom", "sk_sel", "eta_sk", "eta_dom", "static_pref",
+           "aff_sk", "anti", "prefsk", "prefw", "skm", "etm", "selm")
+AFF_STATE = ("aff_cnt", "aff_tot", "anti_cnt")
+
+
+def aff_placer_knobs(case):
+    """Placer knobs that go with an affinity case: in the gang-discard case
+    gangs may need more tasks than their sections hold, so sections place
+    tasks and are then discarded."""
+    return dict(big_gangs=True) if case == "gang_discard" else {}
+
+
+def make_aff_inputs(rng, N, S, SK=6, ETA=3, SEL=4, A=2, B=2, PP=2,
+                    escape=False, anti=False, neg_pref=False, no_live=False):
+    """The 16 affinity arguments of a launch with S slots over N nodes, as
+    a dict by name: (selector, key) pairs over 3 topology keys (some nodes
+    lack a key), live counts that are integer-valued and consistent with
+    the domains, slot tables with padded (-1) entries. ``escape`` empties
+    some pairs (total 0) that tasks match and require; ``anti`` gives tasks
+    own anti terms and placed pods anti terms they match; ``neg_pref``
+    makes the preferred weights negative; ``no_live`` marks no node live
+    (the normalisation's empty span)."""
+    n_keys = 3
+    key_dom = np.stack([np.where(rng.rand(N) < 0.1, -1,
+                                 rng.randint(0, 2 + 3 * k, N))
+                        for k in range(n_keys)]).astype(I32)
+    sk_sel = rng.randint(0, SEL, SK).astype(I32)
+    sk_sel[-1] = -1                                  # a padded pair
+    sk_key = rng.randint(0, n_keys, SK)
+    skdom = key_dom[sk_key]
+    skdom[-1] = -1
+    eta_sk = rng.randint(0, SK - 1, ETA).astype(I32)
+    eta_sk[-1] = -1                                  # a padded term
+    eta_dom = np.where(eta_sk[:, None] >= 0, skdom[np.maximum(eta_sk, 0)],
+                       -1).astype(I32)
+
+    def dom_counts(dom, n_pods):
+        """Counts of n_pods pods on random nodes, per node's domain."""
+        c = np.zeros(N, F32)
+        for node in rng.randint(0, N, n_pods):
+            if dom[node] >= 0:
+                c[dom == dom[node]] += 1.0
+        return c
+
+    aff_cnt = np.stack([dom_counts(skdom[k], rng.randint(0, 4))
+                        for k in range(SK)])
+    if escape:
+        aff_cnt[:2] = 0.0                            # nothing placed yet
+    aff_tot = np.array([[float(rng.randint(1, 5)) if aff_cnt[k].any() else
+                         0.0] for k in range(SK)], F32)
+    anti_cnt = np.stack([dom_counts(eta_dom[e], rng.randint(0, 3 if anti
+                                                            else 2))
+                         for e in range(ETA)])
+    static_pref = (rng.randint(-2, 3, (SEL, N)) * 5).astype(F32)
+    live = (rng.rand(1, N) < (0.0 if no_live else 0.9)).astype(F32)
+
+    def slots(p, lo, hi, rows):
+        return np.where(rng.rand(rows, S) < p, rng.randint(lo, hi,
+                                                           (rows, S)),
+                        -1).astype(I32)
+
+    aff_sk = slots(0.6 if escape else 0.3, 0, SK - 1, A)
+    if escape:
+        aff_sk[0] = np.where(rng.rand(S) < 0.7, rng.randint(0, 2, S),
+                             aff_sk[0])
+    anti_t = slots(0.5 if anti else 0.15, 0, ETA, B)
+    prefsk = slots(0.6, 0, SK, PP)
+    w = rng.randint(1, 20, (PP, S)).astype(F32)
+    prefw = np.where(prefsk >= 0, -w if neg_pref else
+                     np.where(rng.rand(PP, S) < 0.3, -w, w), 0.0).astype(F32)
+    skm = (rng.rand(SK, S) < (0.7 if escape else 0.4)).astype(F32)
+    etm = (rng.rand(ETA, S) < (0.6 if anti else 0.2)).astype(F32)
+    etm[-1] = 0.0                                    # the padded term
+    selm = (rng.rand(SEL, S) < 0.4).astype(F32)
+    return dict(live=live, skdom=skdom, sk_sel=sk_sel[:, None],
+                eta_sk=eta_sk[None, :], eta_dom=eta_dom,
+                static_pref=static_pref, aff_sk=aff_sk, anti=anti_t,
+                prefsk=prefsk, prefw=prefw, skm=skm, etm=etm, selm=selm,
+                aff_cnt=aff_cnt.astype(F32), aff_tot=aff_tot,
+                anti_cnt=anti_cnt.astype(F32))
+
+
+def make_inputs(seed, K=8, M=4, N=40, R=2, G=2, GR=2, P=3, gpu=True,
+                tight=False, releasing=False, big_gangs=False, aff=None):
+    """Flat round placer arguments (numpy) in the kernel's order. Values
+    sit on a 0.25 grid, so scores tie and capacity hits exact fits. With
+    ``aff`` (knobs of make_aff_inputs) the affinity arguments join, for a
+    launch with cfg.enable_pod_affinity."""
+    rng = np.random.RandomState(seed)
+    KM = K * M
+
+    def grid(*shape, lo=0.0, hi=8.0):
+        return (rng.randint(int(lo * 4), int(hi * 4) + 1, size=shape)
+                / 4.0).astype(F32)
+
+    def flags(p, *shape):
+        return (rng.rand(*shape) < p).astype(I32)
+
+    resreq = grid(R, KM, lo=0.0, hi=3.0)
+    gpu_req = np.where(rng.rand(1, KM) < 0.5,
+                       rng.randint(1, 8, (1, KM)), 0).astype(F32)
+    pref = np.where(rng.rand(1, KM) < 0.2, rng.randint(0, N, (1, KM)),
+                    -1).astype(I32)
+    suffix = rng.randint(0, 3, (1, KM)).astype(I32)
+    tmpl = rng.randint(0, P, (1, KM)).astype(I32)
+    grp = np.where(rng.rand(1, KM) < 0.3, rng.randint(0, GR, (1, KM)),
+                   -1).astype(I32)
+    voln = np.where(rng.rand(1, KM) < 0.1, rng.randint(0, N, (1, KM)),
+                    -1).astype(I32)
+    volok = flags(0.95, 1, KM)
+    rev = flags(0.3, 1, KM)
+    active = flags(0.9, 1, KM)
+    ready0 = rng.randint(0, 2, (1, K)).astype(I32)
+    hi_min = 2 * M if big_gangs else M
+    minav = rng.randint(1, hi_min + 1, (1, K)).astype(I32)
+    canb = flags(0.5, 1, K)
+    secact = flags(0.9, 1, K)
+    istgt = flags(0.2, 1, K)
+    tstat = (rng.rand(P, N) < 0.85).astype(F32)
+    tscore = (rng.randint(0, 5, (P, N)) * 25).astype(F32)
+    nascore = (rng.randint(0, 3, (P, N)) * 10).astype(F32)
+    blocknr = flags(0.1, 1, N).astype(F32)
+    blockall = flags(0.05, 1, N).astype(F32)
+    bonus = (flags(0.3, 1, N) * 100).astype(F32)
+    locked = flags(0.1, 1, N).astype(F32)
+    orfeas = (rng.rand(GR, N) < 0.7).astype(F32)
+    alloc = grid(R, N, lo=2.0, hi=8.0)
+    alloc[rng.rand(R, N) < 0.05] = 0.0
+    idle = np.minimum(alloc, grid(R, N, hi=2.0 if tight else 8.0))
+    relmp = grid(R, N, lo=-1.0, hi=6.0 if releasing else 1.0)
+    if releasing:
+        idle = np.minimum(idle, grid(R, N, hi=0.5))
+    cnt = rng.randint(0, 5, (1, N)).astype(F32)
+    maxp = rng.randint(3, 9, (1, N)).astype(F32)
+    gidle0 = rng.randint(0, 16, (G, N)).astype(F32)
+    pipe = grid(R, N, hi=0.5)
+    pods = rng.randint(0, 2, (1, N)).astype(F32)
+    gpux = rng.randint(0, 3, (G, N)).astype(F32)
+    a = make_aff_inputs(rng, N, KM, **aff) if aff is not None else None
+    args = [resreq] + ([gpu_req] if gpu else []) + [
+        pref, suffix, tmpl, grp, voln, volok, rev, active,
+        ready0, minav, canb, secact, istgt,
+        tstat, tscore, nascore, blocknr, blockall, bonus, locked, orfeas,
+        relmp, alloc, cnt, maxp] + ([gidle0] if gpu else []) + (
+        [a[k] for k in AFF_ENV] if a else []) + [
+        idle, pipe, pods] + ([gpux] if gpu else []) + (
+        [a[k] for k in AFF_STATE] if a else [])
+    return args
+
+
+#: round placer cases: input shape and knobs
+CASES = {
+    "gpu_on": dict(gpu=True),
+    "gpu_off": dict(gpu=False),
+    "gang_discard": dict(gpu=True, tight=True, big_gangs=True),
+    "pipelining_on_releasing": dict(gpu=False, releasing=True),
+    "three_resources": dict(gpu=True, R=3),
+    "one_section": dict(gpu=True, K=1, M=8),
+    "n_not_multiple_of_128": dict(gpu=True, N=200, M=6),
+}
 
 
 
@@ -77,22 +261,26 @@ DYN_CASES = {
     "padded_candidates": dict(drf_job_order=True, n_elig=3),
 }
 
-DYN_FLAGS = ("drf_job_order", "drf_ns_order", "enable_hdrf", "enable_gpu")
+DYN_FLAGS = ("drf_job_order", "drf_ns_order", "enable_hdrf", "enable_gpu",
+             "enable_pod_affinity")
 
 
 def make_dyn_inputs(seed, C=4, KP=12, M=4, J=24, Q=3, S=2, N=40, R=2, G=2,
                     GR=2, P=3, NH=0, gpu=False, drf_job_order=False,
                     drf_ns_order=False, enable_hdrf=False, deserved="inf",
                     tight=False, big_gangs=False, releasing=False, kmax=None,
-                    n_elig=None):
+                    n_elig=None, aff=None):
     """(flags, flat numpy args in the dyn placer's order). Values sit on a
     0.25 grid (keys tie, capacity hits exact fits, every sum is exact);
     candidates are the C lexicographically smallest eligible jobs at the
-    inputs' state, as the cycle chooses them."""
+    inputs' state, as the cycle chooses them. With ``aff`` (knobs of
+    make_aff_inputs) the affinity arguments join, for a launch with
+    cfg.enable_pod_affinity (flagged in the returned flags)."""
     rng = np.random.RandomState(seed)
     CM = C * M
     flags = dict(drf_job_order=drf_job_order, drf_ns_order=drf_ns_order,
-                 enable_hdrf=enable_hdrf, enable_gpu=gpu)
+                 enable_hdrf=enable_hdrf, enable_gpu=gpu,
+                 enable_pod_affinity=aff is not None)
 
     def grid(*shape, lo=0.0, hi=8.0):
         return (rng.randint(int(lo * 4), int(hi * 4) + 1, size=shape)
@@ -209,17 +397,21 @@ def make_dyn_inputs(seed, C=4, KP=12, M=4, J=24, Q=3, S=2, N=40, R=2, G=2,
         idle=idle, pipe=grid(R, N, hi=0.5),
         pods=rng.randint(0, 2, (1, N)).astype(F32),
         gpux=rng.randint(0, 3, (G, N)).astype(F32))
+    if aff is not None:
+        node.update(make_aff_inputs(rng, N, CM, **aff))
 
     order_names = (
         "resreq gpu_req pref suffix tmpl grp voln volok rev tidok nbe cand "
         "cslot skeys hcols qid qoh nsm nsc nsw minav rdy0 npend eligs "
         "validf canb des qex total kmax tgt tstat tscore nascore blocknr "
-        "blockall bonus locked orfeas relmp alloc cnt maxp gidle0 idle pipe "
-        "pods gpux done popped jready jpipe cursor acount jalloc qalloc"
+        "blockall bonus locked orfeas relmp alloc cnt maxp gidle0 "
+        + " ".join(AFF_ENV) + " idle pipe pods gpux " + " ".join(AFF_STATE)
+        + " done popped jready jpipe cursor acount jalloc qalloc"
     ).split()
     optional = {"gpu_req": gpu, "gidle0": gpu, "gpux": gpu,
                 "hcols": enable_hdrf, "nsm": drf_ns_order,
-                "nsc": drf_ns_order, "nsw": drf_ns_order}
+                "nsc": drf_ns_order, "nsw": drf_ns_order,
+                **{k: aff is not None for k in AFF_ENV + AFF_STATE}}
     src = {**d, **slot, **node}
     args = [np.ascontiguousarray(src[k]) for k in order_names
             if optional.get(k, True)]

@@ -2,7 +2,9 @@
 jobs, with the ordering keys recomputed after every gang commit.
 
 Port of ``volcano_tpu/ops/pallas_place.make_dyn_round_placer`` (the Pallas
-``_dyn_kernel``), without the pod-affinity extension. It carries the
+``_dyn_kernel``), with its pod-affinity extension under
+``cfg.enable_pod_affinity`` (the placement step and the affinity step of
+``ops/round_placer.py``). It carries the
 configurations whose job-ordering keys move with commits (drf job and
 namespace shares, a finite proportion ``deserved``, hdrf): each pop
 
@@ -32,7 +34,8 @@ Two implementations share one signature and argument order (the order of
 :func:`dyn_place` chooses by the device of the tensors it is given.
 
 Arguments (``*`` only with ``cfg.enable_gpu``, ``^`` only with
-``cfg.enable_hdrf``, ``#`` only with ``cfg.drf_ns_order``)::
+``cfg.enable_hdrf``, ``#`` only with ``cfg.drf_ns_order``, ``@`` only with
+``cfg.enable_pod_affinity``, as in ``ops/round_placer.py``)::
 
     resreq f32[R, CM], *gpu_req f32[1, CM], pref, suffix, tmpl, grp, voln,
     volok, rev, tidok, nbe i32[1, CM], cand i32[1, C], cslot i32[1, J],
@@ -42,14 +45,16 @@ Arguments (``*`` only with ``cfg.enable_gpu``, ``^`` only with
     f32[Q, 1], total f32[R, 1], kmax, tgt i32[1, 1], tstat, tscore,
     nascore f32[P, N], blocknr, blockall, bonus, locked f32[1, N], orfeas
     f32[GR, N], relmp, alloc f32[R, N], cnt, maxp f32[1, N], *gidle0
-    f32[G, N], idle, pipe f32[R, N], pods f32[1, N], *gpux f32[G, N],
-    done, popped, jready, jpipe, cursor, acount i32[1, J], jalloc f32[R, J],
+    f32[G, N], @live ... @selm (the 13 affinity arguments, [.., CM] per
+    slot), idle, pipe f32[R, N], pods f32[1, N], *gpux f32[G, N],
+    @aff_cnt f32[SK, N], @aff_tot f32[SK, 1], @anti_cnt f32[ETA, N], done,
+    popped, jready, jpipe, cursor, acount i32[1, J], jalloc f32[R, J],
     qalloc f32[Q, R]
 
 Outputs, as the reference returns them: node, mode, gpu i32[1, CM], idle',
-pipe' f32[R, N], pods' f32[1, N], (gpux' f32[G, N]), done', popped',
-ready', pipelined', cursor', acount' i32[1, J], jalloc' f32[R, J], qalloc'
-f32[Q, R], pops, progressed i32[1, 1].
+pipe' f32[R, N], pods' f32[1, N], (gpux' f32[G, N]), (aff_cnt', aff_tot',
+anti_cnt'), done', popped', ready', pipelined', cursor', acount' i32[1, J],
+jalloc' f32[R, J], qalloc' f32[Q, R], pops, progressed i32[1, 1].
 
 Sums over jobs (the namespace allocation) fold in job order and sums over
 slots (a pop's committed resources) in slot order, in both versions.
@@ -80,8 +85,10 @@ MAX_KEYS = 32
 #: jobs each thread of the kernel's block keeps in its eligibility bitmask
 JOB_BITS = 32
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel since the count was last set to 0, and those
+#: of them that ran the pod-affinity step
 launches = 0
+aff_launches = 0
 #: pops, and launches that stopped before their pop budget, of the
 #: dynamic-key launches the allocate cycle has read back (either version)
 pops = 0
@@ -133,10 +140,26 @@ class DynArgs(NamedTuple):
     cnt: torch.Tensor
     maxp: torch.Tensor
     gidle0: Optional[torch.Tensor]
+    live: Optional[torch.Tensor]
+    skdom: Optional[torch.Tensor]
+    sk_sel: Optional[torch.Tensor]
+    eta_sk: Optional[torch.Tensor]
+    eta_dom: Optional[torch.Tensor]
+    static_pref: Optional[torch.Tensor]
+    aff_sk: Optional[torch.Tensor]
+    anti: Optional[torch.Tensor]
+    prefsk: Optional[torch.Tensor]
+    prefw: Optional[torch.Tensor]
+    skm: Optional[torch.Tensor]
+    etm: Optional[torch.Tensor]
+    selm: Optional[torch.Tensor]
     idle: torch.Tensor
     pipe: torch.Tensor
     pods: torch.Tensor
     gpux: Optional[torch.Tensor]
+    aff_cnt: Optional[torch.Tensor]
+    aff_tot: Optional[torch.Tensor]
+    anti_cnt: Optional[torch.Tensor]
     done: torch.Tensor
     popped: torch.Tensor
     jready: torch.Tensor
@@ -147,10 +170,8 @@ class DynArgs(NamedTuple):
     qalloc: torch.Tensor
 
 
-_OPTIONAL = {"gpu_req": "enable_gpu", "gidle0": "enable_gpu",
-             "gpux": "enable_gpu", "hcols": "enable_hdrf",
-             "nsm": "drf_ns_order", "nsc": "drf_ns_order",
-             "nsw": "drf_ns_order"}
+_OPTIONAL = {**rp.OPTIONAL, "hcols": "enable_hdrf", "nsm": "drf_ns_order",
+             "nsc": "drf_ns_order", "nsw": "drf_ns_order"}
 
 
 def unpack_args(cfg, args) -> DynArgs:
@@ -218,10 +239,12 @@ def _shapes(a: DynArgs):
 def dyn_place_plain(cfg, C: int, KP: int, M: int, args, stats=None):
     """Plain PyTorch version of the dynamic-key placer (see the module
     docstring). Runs on the device of its arguments. ``stats``, when a dict
-    is given, gains ``attempts`` and ``pops``: the work the kernel's bound
-    is computed from."""
+    is given, gains ``attempts`` and ``pops`` (and with pod affinity
+    ``aff_rows`` and ``aff_commit_rows``): the work the kernel's bound is
+    computed from."""
     a = unpack_args(cfg, args)
     gpu = bool(cfg.enable_gpu)
+    aff = bool(cfg.enable_pod_affinity)
     dev = a.idle.device
     R, N, CM, _, J, Q, S, NH, _ = _shapes(a)
     w = rp._weights(cfg)
@@ -250,6 +273,8 @@ def dyn_place_plain(cfg, C: int, KP: int, M: int, args, stats=None):
 
     state = [a.idle.clone(), a.pipe.clone(), a.pods.clone(),
              a.gpux.clone() if gpu else None]
+    state += [a.aff_cnt.clone(), a.aff_tot.clone(), a.anti_cnt.clone()] \
+        if aff else [None] * 3
     done, popped = a.done.clone(), a.popped.clone()
     jready, jpipe = a.jready.clone(), a.jpipe.clone()
     cursor, acount = a.cursor.clone(), a.acount.clone()
@@ -259,7 +284,7 @@ def dyn_place_plain(cfg, C: int, KP: int, M: int, args, stats=None):
     gpu_o = [-1] * CM
     pops = 0
     kept_any = prog = False
-    n_attempts = 0
+    stats = {} if stats is None else stats
 
     for p in range(KP):
         # ---- eligibility: the proportion overused gate, live -----------
@@ -328,9 +353,8 @@ def dyn_place_plain(cfg, C: int, KP: int, M: int, args, stats=None):
             active = can_run and nbe[s] > 0
             node, mode, card = -1, MODE_NONE, -1
             if active:
-                n_attempts += 1
                 node, mode, card = rp.place_one(cfg, w, a, sl, s, is_tgt,
-                                                state, iota_n)
+                                                state, iota_n, stats)
             node_o[s], mode_o[s], gpu_o[s] = node, mode, card
             placed = mode != MODE_NONE
             n_allocs += mode == MODE_ALLOCATED
@@ -374,17 +398,17 @@ def dyn_place_plain(cfg, C: int, KP: int, M: int, args, stats=None):
         prog = prog or n_allocs > 0 or pipelined or ready
         pops += 1
 
-    if stats is not None:
-        stats["attempts"] = stats.get("attempts", 0) + n_attempts
-        stats["pops"] = stats.get("pops", 0) + pops
+    stats["pops"] = stats.get("pops", 0) + pops
 
     def i32(v) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.int32, device=dev).reshape(1, -1)
 
-    idle, pipe, pods, gpux = state
+    idle, pipe, pods, gpux = state[:4]
     outs = [i32(node_o), i32(mode_o), i32(gpu_o), idle, pipe, pods]
     if gpu:
         outs.append(gpux)
+    if aff:
+        outs += state[4:]
     return tuple(outs + [done, popped, jready, jpipe, cursor, acount,
                          jalloc, qalloc, i32([pops]), i32([int(prog)])])
 
@@ -409,20 +433,25 @@ def _library():
     return _lib
 
 
-#: number of pointer arguments of the C launcher: the inputs, then the 17
-#: outputs (absent optional ones as null pointers)
-N_PTRS = len(DynArgs._fields) + 17
-#: order of the integer dimensions and flags of the C launcher
+#: outputs of the C launcher, after the inputs (absent ones as null)
+N_OUTS = 20
+#: number of pointer arguments of the C launcher: the inputs, the outputs
+#: and the affinity scratch rows
+N_PTRS = len(DynArgs._fields) + N_OUTS + 1
+#: order of the integer dimensions and flags of the C launcher; the key
+#: plan follows
 DIMS = ("C", "KP", "M", "N", "R", "G", "GR", "J", "Q", "S", "NH", "NKS",
-        "gang", "pipelining", "drf_ns", "nkeys")
+        "gang", "pipelining", "drf_ns", "nkeys", "aff", "SK", "ETA", "SEL",
+        "A", "B", "PP")
 
 
-def shared_bytes(M: int, R: int, G: int, Q: int, S: int) -> int:
+def shared_bytes(M: int, R: int, G: int, Q: int, S: int,
+                 list_ints: int = 0) -> int:
     """Dynamic shared memory of one launch: one pop's saved node columns
     (node id + idle, pipe [R] + pods + GPU cards [G] per slot), the queue
-    gate and share [Q] each, and the namespace allocations and shares
-    [S, R + 1]."""
-    return (M * (2 * R + G + 2) + 2 * Q + S * (R + 1)) * 4
+    gate and share [Q] each, the namespace allocations and shares
+    [S, R + 1], and one attempt's affinity term lists."""
+    return (M * (2 * R + G + 2) + 2 * Q + S * (R + 1) + list_ints) * 4
 
 
 def _check(cfg, C, KP, M, a: DynArgs):
@@ -457,24 +486,14 @@ def _check(cfg, C, KP, M, a: DynArgs):
         pods=((1, N), f), gpux=((G, N), f), done=((1, J), i),
         popped=((1, J), i), jready=((1, J), i), jpipe=((1, J), i),
         cursor=((1, J), i), acount=((1, J), i), jalloc=((R, J), f),
-        qalloc=((Q, R), f))
-    for name, (shape, dtype) in want.items():
-        t = getattr(a, name)
-        if t is None:
-            continue
-        if t.device != a.idle.device:
-            raise ValueError(f"{name}: expected a tensor on {a.idle.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
+        qalloc=((Q, R), f), **rp.aff_shapes(a, CM))
+    rp.check_layout(want, a)
     return plan
 
 
 def dyn_place_cuda(cfg, C: int, KP: int, M: int, args):
     """Launch the CUDA kernel on the current stream (no synchronisation)."""
-    global launches
+    global launches, aff_launches
     a = unpack_args(cfg, args)
     if not a.idle.is_cuda:
         raise ValueError(f"the kernel takes tensors on a CUDA device, not "
@@ -491,36 +510,40 @@ def dyn_place_cuda(cfg, C: int, KP: int, M: int, args):
                          f"jobs, got {J}")
     if len(plan) > MAX_KEYS:
         raise ValueError(f"{len(plan)} ordering keys, over {MAX_KEYS}")
-    smem = shared_bytes(M, R, G, Q, S)
+    ad = rp.aff_dims(a)
+    smem = shared_bytes(M, R, G, Q, S, rp.aff_list_ints(ad))
     if smem > 48 * 1024:
         raise ValueError(f"the launch needs {smem} bytes of shared memory, "
                          f"over the 48 KiB a launch takes without opt-in")
     dev = a.idle.device
     i32 = dict(dtype=torch.int32, device=dev)
     outs = [torch.empty((1, CM), **i32) for _ in range(3)]
-    outs += [torch.empty_like(a.idle), torch.empty_like(a.pipe),
-             torch.empty_like(a.pods),
-             torch.empty_like(a.gpux) if a.gpux is not None else None]
-    outs += [torch.empty_like(t) for t in (a.done, a.popped, a.jready,
-                                           a.jpipe, a.cursor, a.acount,
-                                           a.jalloc, a.qalloc)]
+    outs += [torch.empty_like(t) if t is not None else None
+             for t in (a.idle, a.pipe, a.pods, a.gpux, a.aff_cnt, a.aff_tot,
+                       a.anti_cnt, a.done, a.popped, a.jready, a.jpipe,
+                       a.cursor, a.acount, a.jalloc, a.qalloc)]
     outs += [torch.empty((1, 1), **i32), torch.empty((1, 1), **i32)]
+    scratch = (torch.empty((2, N), dtype=torch.float32, device=dev)
+               if ad["aff"] else None)
     ptrs = (ctypes.c_void_p * N_PTRS)(*[
-        t.data_ptr() if t is not None else None for t in list(a) + outs])
+        t.data_ptr() if t is not None else None
+        for t in list(a) + outs + [scratch]])
     dims = dict(C=C, KP=KP, M=M, N=N, R=R, G=G, GR=a.orfeas.shape[0], J=J,
                 Q=Q, S=S, NH=NH, NKS=a.skeys.shape[0],
                 gang=int(bool(cfg.enable_gang)),
                 pipelining=int(bool(cfg.enable_pipelining)),
-                drf_ns=int(bool(cfg.drf_ns_order)), nkeys=len(plan))
+                drf_ns=int(bool(cfg.drf_ns_order)), nkeys=len(plan), **ad)
     ints = (ctypes.c_int * (len(DIMS) + MAX_KEYS))(
         *[dims[k] for k in DIMS], *plan)
-    weights = (ctypes.c_float * 4)(*rp._weights(cfg))
+    weights = (ctypes.c_float * 5)(
+        *rp._weights(cfg), float(np.float32(cfg.pod_affinity_weight)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _library().dyn_placer_launch(ptrs, ints, weights,
                                       ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"dyn_placer launch failed: CUDA error {rc}")
     launches += 1
+    aff_launches += ad["aff"]
     return tuple(o for o in outs if o is not None)
 
 

@@ -2,13 +2,19 @@
 
 Port of ``volcano_tpu/ops/pallas_place.make_round_placer`` (the Pallas
 ``_batch_kernel`` with its placement step ``_make_attempt`` and score
-``_dyn_score``), without the pod-affinity extension. One call places the
+``_dyn_score``), and of its pod-affinity extension (``_read_aff_env``,
+``_aff_eval``, ``_aff_commit``) with ``cfg.enable_pod_affinity``. One call
+places the
 pending tasks of K pre-selected gangs in order. For every task: the static
 template row and the tdm / lock / OR-group / volume gates, the pod count,
 the GPU card fit and the resource fit on idle ("now") and on future idle;
 the binpack / least / most / balanced + taint + node-affinity + tdm bonus +
-preferred-node score; the lowest-index argmax for both views; the commit to
-idle / pipelined / pods / GPU cards. Yield and break (allocate.go:205-266)
+preferred-node score; with pod affinity the InterPodAffinity mask (required
+affinity with the first-pod escape, own and symmetric required
+anti-affinity) and the min-max normalised preferred-term score over the
+live counts; the lowest-index argmax for both views; the commit to idle /
+pipelined / pods / GPU cards and to the affinity counts. Yield and break
+(allocate.go:205-266)
 and the gang commit or discard of each section (statement.go:352-395)
 happen inside the call, so committed capacity flows from section to section.
 
@@ -23,17 +29,23 @@ Two implementations share one signature and argument order (the order of
 :func:`round_place` chooses by the device of the tensors it is given.
 
 Arguments (node axis last, as in the reference; ``*`` only when
-``cfg.enable_gpu``)::
+``cfg.enable_gpu``, ``@`` only when ``cfg.enable_pod_affinity``)::
 
     resreq_t f32[R, KM], *gpu_req f32[1, KM], pref, suffix, tmpl, grp, voln,
     volok, rev, active i32[1, KM], ready0, minav, canb, secact, istgt
     i32[1, K], tstat, tscore, nascore f32[P, N], blocknr, blockall, bonus,
     locked f32[1, N], orfeas f32[GR, N], relmp, alloc_t f32[R, N], cnt, maxp
-    f32[1, N], *gidle0 f32[G, N], idle, pipe f32[R, N], pods f32[1, N],
-    *gpux f32[G, N]
+    f32[1, N], *gidle0 f32[G, N], @live f32[1, N], @skdom i32[SK, N],
+    @sk_sel i32[SK, 1], @eta_sk i32[1, ETA], @eta_dom i32[ETA, N],
+    @static_pref f32[SEL, N], @aff_sk i32[A, KM], @anti i32[B, KM],
+    @prefsk i32[PP, KM], @prefw f32[PP, KM], @skm f32[SK, KM], @etm
+    f32[ETA, KM], @selm f32[SEL, KM], idle, pipe f32[R, N], pods f32[1, N],
+    *gpux f32[G, N], @aff_cnt f32[SK, N], @aff_tot f32[SK, 1], @anti_cnt
+    f32[ETA, N]
 
-Outputs: node, mode, gpu i32[KM], idle', pipe' f32[R, N], pods' f32[1, N]
-and, with the GPU path, gpux' f32[G, N].
+Outputs: node, mode, gpu i32[KM], idle', pipe' f32[R, N], pods' f32[1, N],
+with the GPU path gpux' f32[G, N], with pod affinity aff_cnt' f32[SK, N],
+aff_tot' f32[SK, 1], anti_cnt' f32[ETA, N].
 """
 
 from __future__ import annotations
@@ -52,12 +64,15 @@ _EPS_FIT = float(np.float32(1e-5))   # predicates._EPS
 _EPS_DIV = float(np.float32(1e-9))   # scoring._EPS
 _OVER = float(np.float32(1.0 + 1e-6))
 NEG = float(np.float32(-1e30))       # select.NEG
+_BIG = float(np.float32(3.4e38))     # the normalisation's empty extremes
 
 #: node-axis sums inside the kernel keep one register slot per resource dim
 MAX_R = 8
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: launches of the CUDA kernel since the count was last set to 0, and those
+#: of them that ran the pod-affinity step
 launches = 0
+aff_launches = 0
 
 
 class PlacerArgs(NamedTuple):
@@ -89,20 +104,44 @@ class PlacerArgs(NamedTuple):
     cnt: torch.Tensor
     maxp: torch.Tensor
     gidle0: Optional[torch.Tensor]
+    live: Optional[torch.Tensor]
+    skdom: Optional[torch.Tensor]
+    sk_sel: Optional[torch.Tensor]
+    eta_sk: Optional[torch.Tensor]
+    eta_dom: Optional[torch.Tensor]
+    static_pref: Optional[torch.Tensor]
+    aff_sk: Optional[torch.Tensor]
+    anti: Optional[torch.Tensor]
+    prefsk: Optional[torch.Tensor]
+    prefw: Optional[torch.Tensor]
+    skm: Optional[torch.Tensor]
+    etm: Optional[torch.Tensor]
+    selm: Optional[torch.Tensor]
     idle: torch.Tensor
     pipe: torch.Tensor
     pods: torch.Tensor
     gpux: Optional[torch.Tensor]
+    aff_cnt: Optional[torch.Tensor]
+    aff_tot: Optional[torch.Tensor]
+    anti_cnt: Optional[torch.Tensor]
 
 
-_GPU_FIELDS = ("gpu_req", "gidle0", "gpux")
+#: the affinity arguments, in the order of pallas_place._read_aff_env, and
+#: the live affinity state
+AFF_FIELDS = ("live", "skdom", "sk_sel", "eta_sk", "eta_dom", "static_pref",
+              "aff_sk", "anti", "prefsk", "prefw", "skm", "etm", "selm")
+AFF_STATE = ("aff_cnt", "aff_tot", "anti_cnt")
+#: the config flag each optional argument of both placers needs
+OPTIONAL = {**{f: "enable_gpu" for f in ("gpu_req", "gidle0", "gpux")},
+            **{f: "enable_pod_affinity" for f in AFF_FIELDS + AFF_STATE}}
 
 
 def unpack_args(cfg, args) -> PlacerArgs:
-    """Name the flat argument list (GPU entries only with cfg.enable_gpu)."""
+    """Name the flat argument list (GPU entries only with cfg.enable_gpu,
+    affinity entries only with cfg.enable_pod_affinity)."""
     it = iter(args)
-    gpu = bool(cfg.enable_gpu)
-    vals = {f: (next(it) if gpu or f not in _GPU_FIELDS else None)
+    vals = {f: (next(it) if f not in OPTIONAL or getattr(cfg, OPTIONAL[f])
+                else None)
             for f in PlacerArgs._fields}
     rest = list(it)
     if rest:
@@ -176,9 +215,30 @@ def _pick(feas, score, iota):
     return idx.min(), feas.any()
 
 
+class AffLists(NamedTuple):
+    """A launch's affinity slot tables and term maps as host lists."""
+    aff_sk: List[List[int]]    # [A][S]
+    anti: List[List[int]]      # [B][S]
+    prefsk: List[List[int]]    # [PP][S]
+    prefw: List[List[float]]   # [PP][S]
+    skm: List[List[float]]     # [SK][S]
+    etm: List[List[float]]     # [ETA][S]
+    selm: List[List[float]]    # [SEL][S]
+    sk_sel: List[int]          # [SK]
+    eta_sk: List[int]          # [ETA]
+
+    @classmethod
+    def of(cls, a) -> "AffLists":
+        return cls(a.aff_sk.tolist(), a.anti.tolist(), a.prefsk.tolist(),
+                   a.prefw.tolist(), a.skm.tolist(), a.etm.tolist(),
+                   a.selm.tolist(), a.sk_sel[:, 0].tolist(),
+                   a.eta_sk[0].tolist())
+
+
 class SlotLists(NamedTuple):
     """The per-slot integer rows of a launch as host lists (one readback),
-    and the GPU requests when the GPU path is on."""
+    the GPU requests when the GPU path is on and the affinity tables when
+    pod affinity is."""
     pref: List[int]
     tmpl: List[int]
     grp: List[int]
@@ -186,13 +246,99 @@ class SlotLists(NamedTuple):
     volok: List[int]
     rev: List[int]
     gpu_req: Optional[List[float]]
+    aff: Optional[AffLists]
 
     @classmethod
     def of(cls, a) -> "SlotLists":
         rows = torch.cat([a.pref, a.tmpl, a.grp, a.voln, a.volok,
                           a.rev]).tolist()
         return cls(*rows, a.gpu_req[0].tolist() if a.gpu_req is not None
-                   else None)
+                   else None, AffLists.of(a) if a.live is not None else None)
+
+
+def aff_eval(a, al: AffLists, s: int, aff_state, stats=None):
+    """The InterPodAffinity mask and the normalised preferred score [1, N]
+    of slot ``s`` against the live counts: the plain version of
+    ``pallas_place._aff_eval``. Rows the task does not match are skipped;
+    they add ``false`` or 0 * x to integer-valued sums in the reference."""
+    cnt, tot, anti_cnt = aff_state
+    zero = torch.zeros((), dtype=torch.float32, device=cnt.device)
+    ok = torch.ones_like(a.live, dtype=torch.bool)
+    rows = 0
+    # required affinity: the domain holds a matching pod, or the first-pod
+    # escape (no matching pod anywhere, and the task matches itself)
+    for sks in al.aff_sk:
+        sk = sks[s]
+        if sk < 0:
+            continue
+        esc = (tot[sk:sk + 1] == 0) & (al.skm[sk][s] > 0)   # [1, 1]
+        ok = ok & (a.skdom[sk:sk + 1] >= 0) & ((cnt[sk:sk + 1] > 0) | esc)
+        rows += 1
+    # required anti-affinity: the task's own terms, then placed pods' terms
+    # that match the task (symmetric)
+    for es in al.anti:
+        e = es[s]
+        if e < 0:
+            continue
+        esk = max(al.eta_sk[e], 0)
+        ok = ok & ~((cnt[esk:esk + 1] > 0) & (a.eta_dom[e:e + 1] >= 0))
+        rows += 1
+    for e, m in enumerate(al.etm):
+        if m[s] > 0:
+            ok = ok & ~((anti_cnt[e:e + 1] > 0) & (a.eta_dom[e:e + 1] >= 0))
+            rows += 1
+    # preferred terms of the task over the live counts, then the static
+    # symmetric map of the snapshot's pods
+    raw = None
+    for sks, ws in zip(al.prefsk, al.prefw):
+        sk = max(sks[s], 0)
+        row = torch.where((a.skdom[sk:sk + 1] >= 0) & (sks[s] >= 0),
+                          ws[s] * cnt[sk:sk + 1], zero)
+        raw = row if raw is None else raw + row
+        rows += 1
+    st = torch.zeros_like(raw)
+    for c, m in enumerate(al.selm):
+        if m[s] != 0:
+            st = st + m[s] * a.static_pref[c:c + 1]
+            rows += 1
+    raw = raw + st
+    # min-max normalised over the live nodes to 0..100 (k8s NormalizeScore)
+    live = a.live > 0
+    mx = torch.where(live, raw, -_BIG).max()
+    mn = torch.where(live, raw, _BIG).min()
+    span = mx - mn
+    q = torch.full_like(span, 100.0) / span.clamp_min(_EPS_DIV)
+    norm = torch.where(span > 0, (raw - mn) * q, zero)
+    if stats is not None:
+        stats["aff_rows"] = stats.get("aff_rows", 0) + rows
+    return ok, norm
+
+
+def aff_commit(a, al: AffLists, s: int, node: int, aff_state, stats=None):
+    """Add slot ``s``'s placement on ``node`` to the live counts, in place:
+    a domain-membership row for every (selector, key) pair the task
+    matches, the cluster total, and the task's own anti terms (the plain
+    version of ``pallas_place._aff_commit``)."""
+    cnt, tot, anti_cnt = aff_state
+    f32 = torch.float32
+    dom_at = a.skdom[:, node].tolist()
+    rows = 0
+    for sk, d in enumerate(dom_at):
+        if al.sk_sel[sk] >= 0 and al.skm[sk][s] > 0 and d >= 0:
+            cnt[sk:sk + 1] = cnt[sk:sk + 1] + (a.skdom[sk:sk + 1] == d).to(f32)
+            tot[sk:sk + 1] = tot[sk:sk + 1] + 1.0
+            rows += 1
+    for es in al.anti:
+        e = es[s]
+        if e < 0:
+            continue
+        d = int(a.eta_dom[e, node])
+        if d >= 0:
+            anti_cnt[e:e + 1] = anti_cnt[e:e + 1] \
+                + (a.eta_dom[e:e + 1] == d).to(f32)
+            rows += 1
+    if stats is not None:
+        stats["aff_commit_rows"] = stats.get("aff_commit_rows", 0) + rows
 
 
 def place_one(cfg, w, a, sl: SlotLists, s: int, is_tgt: bool, state,
@@ -200,10 +346,12 @@ def place_one(cfg, w, a, sl: SlotLists, s: int, is_tgt: bool, state,
     """One placement attempt of slot ``s``: the plain version of
     ``pallas_place._make_attempt`` (feasibility, score, lowest-index argmax
     of both views, commit). ``a`` holds the slot rows and node maps under
-    the names of :class:`PlacerArgs`; ``state`` = [idle, pipe, pods, gpux]
-    is updated in place. Returns (node, mode, card): (-1, MODE_NONE, -1)
-    when no node fits now or, with pipelining, in the future."""
-    idle, pipe, pods, gpux = state
+    the names of :class:`PlacerArgs`; ``state`` = [idle, pipe, pods, gpux,
+    aff_cnt, aff_tot, anti_cnt] (None where a part is off) is updated in
+    place. Returns (node, mode, card): (-1, MODE_NONE, -1) when no node fits
+    now or, with pipelining, in the future."""
+    idle, pipe, pods, gpux = state[:4]
+    aff_state = state[4:] if sl.aff is not None else None
     gpu = bool(cfg.enable_gpu)
     if stats is not None:
         stats["attempts"] = stats.get("attempts", 0) + 1
@@ -239,6 +387,10 @@ def place_one(cfg, w, a, sl: SlotLists, s: int, is_tgt: bool, state,
     score = score + (a.nascore[t:t + 1] + bonus)
     hit = (iota == sl.pref[s]) & (sl.pref[s] >= 0)
     score = score + torch.where(hit, 100.0, 0.0)
+    if aff_state is not None:
+        aff_ok, aff_score = aff_eval(a, sl.aff, s, aff_state, stats)
+        shared = shared & aff_ok
+        score = score + float(np.float32(cfg.pod_affinity_weight)) * aff_score
 
     n_now, f_now = _pick(shared & fit_now, score, iota)
     n_fut, f_fut = _pick(shared & fit_fut, score, iota)
@@ -262,6 +414,8 @@ def place_one(cfg, w, a, sl: SlotLists, s: int, is_tgt: bool, state,
         if bool(fits.any()):
             card = int(torch.argmax(fits.to(torch.uint8)))
             gpux[card, node] = gpux[card, node] + gr
+    if aff_state is not None:
+        aff_commit(a, sl.aff, s, node, aff_state, stats)
     return node, (MODE_ALLOCATED if do_alloc else MODE_PIPELINED), card
 
 
@@ -270,9 +424,14 @@ def round_place_plain(cfg, K: int, M: int, args, stats=None):
 
     Runs on the device of its arguments. ``stats``, when a dict is given,
     gains ``attempts``: the placement attempts that evaluated the node
-    axis (the work the kernel's bound is computed from)."""
+    axis, and with pod affinity ``aff_rows`` and ``aff_commit_rows``: the
+    [1, N] term rows the attempts read and the commits wrote (the work the
+    kernel's bound is computed from). A discarded gang's state, the
+    affinity counts too, is put back from a copy taken at the section's
+    start."""
     a = unpack_args(cfg, args)
     gpu = bool(cfg.enable_gpu)
+    aff = bool(cfg.enable_pod_affinity)
     dev = a.idle.device
     N = a.idle.shape[1]
     KM = K * M
@@ -285,6 +444,8 @@ def round_place_plain(cfg, K: int, M: int, args, stats=None):
 
     state = [a.idle.clone(), a.pipe.clone(), a.pods.clone(),
              a.gpux.clone() if gpu else None]
+    state += [a.aff_cnt.clone(), a.aff_tot.clone(), a.anti_cnt.clone()] \
+        if aff else [None] * 3
     node_o = [-1] * KM
     mode_o = [MODE_NONE] * KM
     gpu_o = [-1] * KM
@@ -321,9 +482,10 @@ def round_place_plain(cfg, K: int, M: int, args, stats=None):
     def i32(v: List[int]) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
-    idle, pipe, pods, gpux = state
+    idle, pipe, pods, gpux = state[:4]
     outs = (i32(node_o), i32(mode_o), i32(gpu_o), idle, pipe, pods)
-    return outs + ((gpux,) if gpu else ())
+    return (outs + ((gpux,) if gpu else ())
+            + (tuple(state[4:]) if aff else ()))
 
 
 # --------------------------------------------------------------------------
@@ -340,8 +502,7 @@ def _library():
         lib = load("round_placer")
         fn = lib.round_placer_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 39 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 4
         _lib = lib
     return _lib
 
@@ -349,12 +510,74 @@ def _library():
 #: threads of the kernel's one block; the wrapper's launch-shape check and
 #: the source's BLOCK must agree
 BLOCK = 1024
+#: outputs of the C launcher, after the inputs (absent ones as null)
+N_OUTS = 10
+#: pointer arguments of the C launcher: inputs, outputs, the scratch rows
+N_PTRS = len(PlacerArgs._fields) + N_OUTS + 1
+#: order of the integer dimensions and flags of the C launcher
+DIMS = ("K", "M", "N", "R", "G", "gang", "pipelining", "aff", "SK", "ETA",
+        "SEL", "A", "B", "PP")
 
 
-def shared_bytes(M: int, R: int, G: int) -> int:
+def aff_dims(a) -> dict:
+    """SK, ETA, SEL, A, B, PP of a launch's affinity arguments (all 0 when
+    pod affinity is off)."""
+    if a.live is None:
+        return dict(aff=0, SK=0, ETA=0, SEL=0, A=0, B=0, PP=0)
+    return dict(aff=1, SK=a.skdom.shape[0], ETA=a.eta_dom.shape[0],
+                SEL=a.static_pref.shape[0], A=a.aff_sk.shape[0],
+                B=a.anti.shape[0], PP=a.prefsk.shape[0])
+
+
+def aff_list_ints(d: dict) -> int:
+    """Ints of shared memory the kernel's per-attempt term lists take
+    (placement.cuh aff_list_ints)."""
+    if not d["aff"]:
+        return 0
+    return (2 * d["A"] + 2 * d["B"] + d["ETA"] + 2 * d["PP"] + 2 * d["SEL"]
+            + d["SK"])
+
+
+def shared_bytes(M: int, R: int, G: int, list_ints: int = 0) -> int:
     """Dynamic shared memory of one launch: the saved node columns of one
-    section (node id + idle, pipe [R] + pods + gpu cards [G] per slot)."""
-    return M * (2 * R + G + 2) * 4
+    section (node id + idle, pipe [R] + pods + gpu cards [G] per slot), and
+    the affinity term lists of one attempt."""
+    return (M * (2 * R + G + 2) + list_ints) * 4
+
+
+def aff_shapes(a, S: int) -> dict:
+    """Expected shape and dtype of each affinity argument of a launch with
+    S slots (for the wrappers' layout checks)."""
+    if a.live is None:
+        return {}
+    d = aff_dims(a)
+    N = a.idle.shape[1]
+    SK, ETA, SEL, A, B, PP = (d[k] for k in ("SK", "ETA", "SEL", "A", "B",
+                                             "PP"))
+    f, i = torch.float32, torch.int32
+    return dict(
+        live=((1, N), f), skdom=((SK, N), i), sk_sel=((SK, 1), i),
+        eta_sk=((1, ETA), i), eta_dom=((ETA, N), i),
+        static_pref=((SEL, N), f), aff_sk=((A, S), i), anti=((B, S), i),
+        prefsk=((PP, S), i), prefw=((PP, S), f), skm=((SK, S), f),
+        etm=((ETA, S), f), selm=((SEL, S), f), aff_cnt=((SK, N), f),
+        aff_tot=((SK, 1), f), anti_cnt=((ETA, N), f))
+
+
+def check_layout(want: dict, a) -> None:
+    """Raise unless every present argument has the device, dtype, shape and
+    contiguity ``want`` names."""
+    for name, (shape, dtype) in want.items():
+        t = getattr(a, name)
+        if t is None:
+            continue
+        if t.device != a.idle.device:
+            raise ValueError(f"{name}: expected a tensor on {a.idle.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
 
 
 def _check(cfg, K, M, a: PlacerArgs):
@@ -381,23 +604,13 @@ def _check(cfg, K, M, a: PlacerArgs):
         cnt=((1, N), torch.float32), maxp=((1, N), torch.float32),
         gidle0=((G, N), torch.float32), idle=((R, N), torch.float32),
         pipe=((R, N), torch.float32), pods=((1, N), torch.float32),
-        gpux=((G, N), torch.float32))
-    for name, (shape, dtype) in want.items():
-        t = getattr(a, name)
-        if t is None:
-            continue
-        if t.device != a.idle.device:
-            raise ValueError(f"{name}: expected a tensor on {a.idle.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
+        gpux=((G, N), torch.float32), **aff_shapes(a, KM))
+    check_layout(want, a)
 
 
 def round_place_cuda(cfg, K: int, M: int, args):
     """Launch the CUDA kernel on the current stream (no synchronisation)."""
-    global launches
+    global launches, aff_launches
     a = unpack_args(cfg, args)
     if not a.idle.is_cuda:
         raise ValueError(f"the kernel takes tensors on a CUDA device, not "
@@ -406,44 +619,39 @@ def round_place_cuda(cfg, K: int, M: int, args):
     gpu = bool(cfg.enable_gpu)
     R, N = a.idle.shape
     G = a.gidle0.shape[0] if gpu else 0
-    # launch shape: one block, per-dim registers, the section's saved columns
+    ad = aff_dims(a)
+    # launch shape: one block, per-dim registers, the section's saved
+    # columns and one attempt's affinity term lists
     if not 1 <= R <= MAX_R:
         raise ValueError(f"the kernel takes 1..{MAX_R} resource dims, got {R}")
-    smem = shared_bytes(M, R, G)
+    smem = shared_bytes(M, R, G, aff_list_ints(ad))
     if smem > 48 * 1024:
         raise ValueError(f"M={M} needs {smem} bytes of shared memory, over "
                          f"the 48 KiB a launch takes without opt-in")
     KM = K * M
     dev = a.idle.device
-    node = torch.empty(KM, dtype=torch.int32, device=dev)
-    mode = torch.empty(KM, dtype=torch.int32, device=dev)
-    gpuc = torch.empty(KM, dtype=torch.int32, device=dev)
-    idle = torch.empty_like(a.idle)
-    pipe = torch.empty_like(a.pipe)
-    pods = torch.empty_like(a.pods)
-    gpux = torch.empty_like(a.gpux) if gpu else None
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-    ins = [a.resreq, a.gpu_req, a.pref, a.suffix, a.tmpl, a.grp, a.voln,
-           a.volok, a.rev, a.active, a.ready0, a.minav, a.canb, a.secact,
-           a.istgt, a.tstat, a.tscore, a.nascore, a.blocknr, a.blockall,
-           a.bonus, a.locked, a.orfeas, a.relmp, a.alloc, a.cnt, a.maxp,
-           a.gidle0, a.idle, a.pipe, a.pods, a.gpux]
-    outs = [node, mode, gpuc, idle, pipe, pods, gpux]
-    lib = _library()
+    outs = [torch.empty(KM, dtype=torch.int32, device=dev) for _ in range(3)]
+    outs += [torch.empty_like(t) if t is not None else None
+             for t in (a.idle, a.pipe, a.pods, a.gpux, a.aff_cnt, a.aff_tot,
+                       a.anti_cnt)]
+    scratch = (torch.empty((2, N), dtype=torch.float32, device=dev)
+               if ad["aff"] else None)
+    ptrs = (ctypes.c_void_p * N_PTRS)(*[
+        t.data_ptr() if t is not None else None
+        for t in list(a) + outs + [scratch]])
+    dims = dict(K=K, M=M, N=N, R=R, G=G, gang=int(bool(cfg.enable_gang)),
+                pipelining=int(bool(cfg.enable_pipelining)), **ad)
+    ints = (ctypes.c_int * len(DIMS))(*[dims[k] for k in DIMS])
+    weights = (ctypes.c_float * 5)(
+        *_weights(cfg), float(np.float32(cfg.pod_affinity_weight)))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.round_placer_launch(
-        *[ptr(t) for t in ins + outs],
-        K, M, N, R, G, int(bool(cfg.enable_gang)),
-        int(bool(cfg.enable_pipelining)),
-        *[ctypes.c_float(x) for x in _weights(cfg)],
-        ctypes.c_void_p(stream))
+    rc = _library().round_placer_launch(ptrs, ints, weights,
+                                        ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"round_placer launch failed: CUDA error {rc}")
     launches += 1
-    return (node, mode, gpuc, idle, pipe, pods) + ((gpux,) if gpu else ())
+    aff_launches += ad["aff"]
+    return tuple(o for o in outs if o is not None)
 
 
 def round_place(cfg, K: int, M: int, args):
