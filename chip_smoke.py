@@ -72,7 +72,29 @@ Phases, each of which fails the run (exit code 1) when it fails:
    both give 07085317a58495b3, the JAX Session's;
 15. the pod-affinity step's own time: CUDA events around the round placer
    at check E's shapes, and the dynamic-key placer at check F's, with pod
-   affinity on and off, beside the plain versions' and the bound.
+   affinity on and off, beside the plain versions' and the bound;
+16. the shard-local candidate search (kernel 4 of the reference) against
+   its plain version, all 8 outputs bitwise: the first 64 launches of
+   check G's cycle, and small built inputs (``ops/dyn_cases.py``
+   SHARD_CASES) at 1 and 4 shards, with GPU cards and without, ties planted
+   across shards and shards with no feasible row;
+17. check G, the sharded path at the north star: ``Session(
+   _synthetic_cluster(10000, 6250, 16), gang + binpack, sharding:
+   true).run_allocate()`` on the one card (a mesh of one shard): one pop and
+   one attempt at a time; the counts are set to 0 just before and read
+   just after, and the candidate kernel must have launched; fingerprint
+   f61d52ccc18b1e69 and 100,000 binds;
+18. check H: ``make_sharded_allocate`` on a 4-shard virtual mesh of the
+   card: ``_synthetic_cluster(1024, 256, 16)`` under
+   ``AllocateConfig(binpack_weight=1.0)`` with neutral extras gives
+   0bed0b3363cfef13 (4,096 placed, 256 gangs ready), at 4 shards and at 1;
+   the shipped conf on ``_synthetic_cluster(1024, 640, 16)`` gives
+   3ae3ff8ac7b0b9b7 (check C's); and the first of these as a plain cycle
+   on the card (the plain version in place of the kernel) at 4 shards
+   gives the same decisions;
+19. the candidate kernel's time: CUDA events around launches at check G's
+   shapes (1 shard of 10,240 rows) and at 4 shards of 2,560, beside the
+   plain version's and the bound.
 
 The expected fingerprints are the JAX package's scan path's (and, for A,
 B, D and the raw configuration-5 cycle, its oracle's too). Each phase's
@@ -102,6 +124,8 @@ CHECK_D = ("ca79ec8f9cd6b7f6", 16)
 #: fingerprint, tasks placed and jobs ready
 CHECK_E = ((10000, 2500), ("a2267c3d4e340d03", 20000, 2500))
 CHECK_F = ((1024, 320, 1), ("07085317a58495b3", 1961, 268))
+#: check H: cluster size, fingerprint, tasks placed and jobs ready
+CHECK_H = ((1024, 256, 16), ("0bed0b3363cfef13", 4096, 256))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -155,6 +179,13 @@ def shipped_conf():
             Tier([PluginOption(n) for n in ("drf", "predicates",
                                             "proportion", "nodeorder",
                                             "binpack")])])
+
+
+def sharded_conf():
+    """The north-star conf (gang + binpack) with ``sharding: true``."""
+    conf = gang_binpack_conf()
+    conf.sharding = True
+    return conf
 
 
 def fair_share_cluster():
@@ -592,6 +623,146 @@ def dyn_counts():
                 early_stops=dp.early_stops, seg_fold_launches=sf.launches)
 
 
+class ShardRecorder:
+    """Shard placer seam: launches the kernel and keeps a copy of the
+    arguments of its first ``keep`` launches; ``stop_after`` ends the cycle
+    early."""
+
+    def __init__(self, keep, stop_after=None):
+        self.keep, self.stop_after = keep, stop_after
+        self.calls = []
+
+    def __call__(self, cfg, D, args):
+        from volcano_tpu_torch.ops import shard_placer as sp
+        if len(self.calls) < self.keep:
+            self.calls.append((cfg, D, [a.clone() for a in args]))
+        if self.stop_after is not None and len(self.calls) >= self.stop_after:
+            raise Recorder.Stop()
+        return sp.shard_candidates_cuda(cfg, D, args)
+
+
+def record_shard_launches(ssn, keep, stop_after=None):
+    """Run the session's sharded allocate cycle on the card through a
+    ShardRecorder."""
+    from volcano_tpu_torch.arrays import to_device
+    from volcano_tpu_torch.ops.allocate_scan import make_allocate_cycle
+    cfg, extras = ssn._derived_allocate_inputs()
+    rec = ShardRecorder(keep, stop_after)
+    try:
+        make_allocate_cycle(cfg, mesh=ssn._sharding_mesh(),
+                            shard_placer=rec)(to_device(ssn.snap, "cuda"),
+                                              to_device(extras, "cuda"))
+    except Recorder.Stop:
+        pass
+    return rec.calls
+
+
+def shard_built_calls():
+    """The small built inputs of the shard placer cases
+    (``volcano_tpu_torch/ops/dyn_cases.py`` SHARD_CASES), on the card."""
+    import torch
+
+    from volcano_tpu_torch.ops.allocate_scan import AllocateConfig
+    from volcano_tpu_torch.ops.dyn_cases import (PLACER_WEIGHTS, SHARD_CASES,
+                                                 make_shard_inputs)
+    calls = []
+    for case in sorted(SHARD_CASES):
+        for D in (1, 4):
+            for gpu in (False, True):
+                cfg = AllocateConfig(enable_gpu=gpu, **PLACER_WEIGHTS)
+                calls.append((cfg, D, [torch.from_numpy(a).cuda() for a in
+                                       make_shard_inputs(
+                                           D, D=D, gpu=gpu,
+                                           **SHARD_CASES[case])]))
+    return calls
+
+
+def compare_shard_plain(calls):
+    """Max |kernel - plain| over the 8 outputs of every launch; raises
+    unless all are bitwise equal."""
+    import torch
+
+    from volcano_tpu_torch.ops import shard_placer as sp
+    worst = 0.0
+    for cfg, D, args in calls:
+        got = sp.shard_candidates_cuda(cfg, D, args)
+        want = sp.shard_candidates_plain_all(cfg, D, args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError("shard kernel and plain version differ")
+    return worst
+
+
+def time_shard_kernel(call):
+    """Candidate kernel ms per launch, plain version ms per call, and the
+    least time for the same work on this card: the bytes of the rows one
+    attempt reads (shard_placer.bound_bytes) against the float32
+    operations of one attempt on each row.
+
+    The wrapper's host work per launch (argument checks, the pointer
+    array) takes longer than the kernel, so CUDA events around a run of
+    launches time the host (``events_ms``); the kernel's own time (``ms``)
+    is its device time per launch in a ``torch.profiler`` trace of the same
+    run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from volcano_tpu_torch.ops import shard_placer as sp
+    cfg, D, args = call
+    for _ in range(3):
+        sp.shard_candidates_cuda(cfg, D, args)
+    torch.cuda.synchronize()
+    reps = 200
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            sp.shard_candidates_cuda(cfg, D, args)
+        end.record()
+        torch.cuda.synchronize()
+    events_ms = start.elapsed_time(end) / reps
+    dev = [(e.time_range.end - e.time_range.start) / 1000
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "shard_cand_kernel" in e.name]
+    if len(dev) != reps:
+        raise RuntimeError(f"the trace holds {len(dev)} kernel launches, "
+                           f"not {reps}")
+    ms = sum(dev) / reps
+    sp.shard_candidates_plain_all(cfg, D, args)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_reps = 5
+    for _ in range(plain_reps):
+        sp.shard_candidates_plain_all(cfg, D, args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000 / plain_reps
+    a = sp.unpack_args(cfg, args)
+    R, N = a.idle.shape
+    G = a.gidle0.shape[0] if cfg.enable_gpu else 0
+    nbytes = sp.bound_bytes(cfg, N, R, G)
+    ops = N * ops_per_node(cfg, R, G)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(D=D, NL=N // D, ms=ms, events_ms=events_ms,
+                plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def shard_counts():
+    from volcano_tpu_torch.ops import shard_placer as sp
+    return dict(launches=sp.launches, pops=sp.pops)
+
+
+def zero_shard_counts():
+    from volcano_tpu_torch.ops import shard_placer as sp
+    sp.launches = sp.pops = 0
+
+
 def zero_dyn_counts():
     from volcano_tpu_torch.ops import dyn_placer as dp
     from volcano_tpu_torch.ops import seg_fold as sf
@@ -638,7 +809,8 @@ def main():
     clock.lap('2 build')
     try:
         t0 = time.perf_counter()
-        logs = _build.build(["round_placer", "dyn_placer", "seg_fold"])
+        logs = _build.build(["round_placer", "dyn_placer", "seg_fold",
+                             "shard_candidates"])
         log(f"build {time.perf_counter() - t0:.1f}s")
         for name, text in logs.items():
             log(f"--- nvcc {name}\n{text.strip()}")
@@ -1023,6 +1195,121 @@ def main():
                 "library_ms": None})
     except Exception as e:
         fail("15 (pod-affinity step time)", e)
+
+    # ---- 16. the shard-local candidate search against its plain version
+    clock.lap("16 shard_vs_plain")
+    from volcano_tpu_torch.ops import shard_placer as sp
+    try:
+        t0 = time.perf_counter()
+        ssn_g = Session(_synthetic_cluster(*FULL), sharded_conf(),
+                        device="cuda")
+        build_g_s = time.perf_counter() - t0
+        assert ssn_g._sharding_mesh().size == 1, ssn_g._sharding_mesh()
+        g_calls = record_shard_launches(ssn_g, keep=64, stop_after=64)
+        assert len(g_calls) == 64, "check G's cycle made under 64 launches"
+        built_s = shard_built_calls()
+        shard_err = compare_shard_plain(g_calls + built_s)
+        log(json.dumps({"phase": "shard_vs_plain", "launches_compared":
+                        len(g_calls + built_s), "max_abs_err": shard_err}))
+    except Exception as e:
+        fail("16 (shard-local candidate search against plain version)", e)
+
+    # ---- 17. check G: the sharded path at the north star ----------------
+    clock.lap("17 check_G")
+    try:
+        zero_shard_counts()
+        t0 = time.perf_counter()
+        ssn_g.run_allocate()
+        session_g_ms = (time.perf_counter() - t0) * 1000
+        counts_g = shard_counts()
+        res = ssn_g.last_allocate
+        sha = fingerprint(res.task_node, res.task_mode)
+        log(json.dumps({"phase": "check_G", "nodes": FULL[0],
+                        "tasks": FULL[1] * FULL[2], "shards": 1,
+                        "cluster_build_s": build_g_s,
+                        "pack_ms": ssn_g.stats["pack_ms"],
+                        "cycle_ms": ssn_g.stats["cycle_ms"],
+                        "apply_ms": ssn_g.stats["apply_ms"],
+                        "run_allocate_ms": session_g_ms,
+                        "binds": len(ssn_g.binds), **counts_g,
+                        "fingerprint": sha}))
+        assert counts_g["launches"] > 0, "check G launched no shard kernel"
+        assert sha == FULL_SHA, f"fingerprint {sha} != {FULL_SHA}"
+        assert len(ssn_g.binds) == FULL[1] * FULL[2], len(ssn_g.binds)
+    except Exception as e:
+        fail("17 (check G, the sharded path at the north star)", e)
+
+    # ---- 18. check H: make_sharded_allocate on a 4-shard virtual mesh --
+    clock.lap("18 check_H")
+    from volcano_tpu_torch.parallel import NodeMesh, make_sharded_allocate
+    try:
+        h_size, h_want = CHECK_H
+        snap_h, _ = pack(_synthetic_cluster(*h_size))
+        extras_h = AllocateExtras.neutral(snap_h)
+        cfg_h = AllocateConfig(binpack_weight=1.0)
+        s_d, e_d = to_device(snap_h, "cuda"), to_device(extras_h, "cuda")
+        out_h = {}
+        packed_h = {}
+        for D in (4, 1):
+            zero_shard_counts()
+            t0 = time.perf_counter()
+            res = make_sharded_allocate(
+                cfg_h, NodeMesh(("cuda",) * D), s_d)(s_d, e_d)
+            packed_h[D] = res.packed_decisions().cpu()
+            tn, tm = res.task_node.cpu().numpy(), res.task_mode.cpu().numpy()
+            out_h[D] = dict(cycle_ms=(time.perf_counter() - t0) * 1000,
+                            **shard_counts(),
+                            placed=int((tm > 0).sum()),
+                            jobs_ready=int(res.job_ready.sum()),
+                            fingerprint=fingerprint(tn, tm))
+        t0 = time.perf_counter()
+        p_res = make_allocate_cycle(
+            cfg_h, mesh=NodeMesh(("cuda",) * 4),
+            shard_placer=sp.shard_candidates_plain_all)(s_d, e_d)
+        p_packed = p_res.packed_decisions().cpu()
+        p_ms = (time.perf_counter() - t0) * 1000
+        sub_h = Session(_synthetic_cluster(*SUB), shipped, device="cuda")
+        cfg_c, extras_c = sub_h._derived_allocate_inputs()
+        t0 = time.perf_counter()
+        res = make_sharded_allocate(cfg_c, NodeMesh(("cuda",) * 4),
+                                    sub_h.snap)(sub_h.snap, extras_c)
+        sha_c = fingerprint(res.task_node.cpu().numpy(),
+                            res.task_mode.cpu().numpy())
+        c_ms = (time.perf_counter() - t0) * 1000
+        log(json.dumps({"phase": "check_H", "binpack_4_shards": out_h[4],
+                        "binpack_1_shard": out_h[1],
+                        "plain_cycle_4_shards_ms": p_ms,
+                        "shipped_conf_4_shards": {
+                            "cycle_ms": c_ms, "fingerprint": sha_c}}))
+        for D in (4, 1):
+            got = (out_h[D]["fingerprint"], out_h[D]["placed"],
+                   out_h[D]["jobs_ready"])
+            assert got == h_want, (D, got)
+            assert out_h[D]["launches"] > 0, D
+        assert torch.equal(packed_h[4], packed_h[1]), "4 shards != 1 shard"
+        assert torch.equal(p_packed, packed_h[4]), "H: kernel and plain differ"
+        assert sha_c == CHECK_C, f"H: shipped conf gave {sha_c}"
+    except Exception as e:
+        fail("18 (check H, make_sharded_allocate on 4 shards)", e)
+
+    # ---- 19. the candidate kernel's time ------------------------------
+    clock.lap("19 shard_time")
+    try:
+        t1 = time_shard_kernel(g_calls[0])
+        cfg_g, _, args_g = g_calls[0]
+        t4 = time_shard_kernel((cfg_g, 4, args_g))
+        for t in (t1, t4):
+            log(json.dumps({"phase": "shard_time", **t}))
+        kernels.append({
+            "name": "shard_candidates", "route": "cuda",
+            "source": "volcano_tpu_torch/csrc/shard_candidates.cu",
+            "replaces": "volcano_tpu/ops/pallas_place.py:1109",
+            "launches": counts_g["launches"], "max_abs_err": shard_err,
+            "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+            "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+            "library_ms": None})
+    except Exception as e:
+        fail("19 (candidate kernel time)", e)
     clock.lap()
 
     log(json.dumps({"phase_seconds": clock.seconds}))

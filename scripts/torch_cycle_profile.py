@@ -1,7 +1,7 @@
 """Where the time of one volcano_tpu_torch allocate cycle goes, on the card.
 
     python3 scripts/torch_cycle_profile.py
-        [--cell north_star | fair_share | affinity]
+        [--cell north_star | fair_share | affinity | sharded]
         [--nodes 10000 --jobs 6250 --tasks-per-job 16] [--window N]
         [--cycles 2] [--out PATH]
 
@@ -13,7 +13,12 @@ weighted queues, 3,125 gangs of 16) under the shipped
 cell is ``chip_smoke.py``'s check E: BASELINE configuration 5
 (``synthetic.affinity_scenario(10000, 2500)``, rack anti-affinity and zone
 preferred affinity) under gang + predicates + binpack: the static-key path
-with the pod-affinity step in the round placer. The script packs and
+with the pod-affinity step in the round placer. The ``sharded`` cell is
+``chip_smoke.py``'s check G: the north-star cluster under gang + binpack
+with ``sharding: true``, the sharded scan path (one pop and one attempt at
+a time, each attempt one launch of the shard-local candidate kernel); its
+numbers are per pop and per attempt, and ``--window`` counts attempts. The
+script packs and
 uploads the snapshot once, runs the allocate cycle once to build and warm
 the kernels, then:
 
@@ -27,11 +32,12 @@ the kernels, then:
    host time of the cycle's steps (``host_ms_by_step``: each of
    ``namespace_shares``, ``drf_job_shares``, ``hdrf_level_keys``,
    ``lex_argmin`` and ``gather_slot_tables`` in ``ops/allocate_scan.py``,
-   and the placer calls, wrapped in a profiler span; the rest of a round
-   is the loop's own tensor work) and the calls that make the host wait
-   for the device or copy
-   between the two (``waits_by_name``: stream and device synchronisations,
-   memory copies), both per placer launch.
+   the shard placer's ``combine``, and the placer calls, wrapped in a
+   profiler span; the rest of a round is the loop's own tensor work) and
+   the calls that make the host wait for the device or copy between the
+   two (``waits_by_name``: stream and device synchronisations, memory
+   copies), both per placer launch, and in the sharded cell per pop and
+   per attempt.
 
 Needs a CUDA card; prints one JSON object, and writes it to ``--out`` when
 given.
@@ -65,7 +71,7 @@ def busy_us(intervals):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cell", choices=("north_star", "fair_share",
-                                       "affinity"),
+                                       "affinity", "sharded"),
                     default="north_star")
     ap.add_argument("--window", type=int, default=0,
                     help="profile only the first N placer launches")
@@ -73,7 +79,8 @@ def main():
     ap.add_argument("--jobs", type=int, default=6250)
     ap.add_argument("--tasks-per-job", type=int, default=16)
     ap.add_argument("--cycles", type=int, default=2,
-                    help="timed cycles before the profiled one")
+                    help="timed cycles before the profiled one (with "
+                    "--window, 0 runs no whole cycle)")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
 
@@ -104,12 +111,42 @@ def main():
     else:
         conf = SchedulerConfiguration(actions=["allocate"], tiers=[
             Tier([PluginOption("gang"), PluginOption("binpack")])])
+        conf.sharding = args.cell == "sharded"
         ci = _synthetic_cluster(args.nodes, args.jobs, args.tasks_per_job)
     ssn = Session(ci, conf, device="cuda")
     cfg, extras = ssn._derived_allocate_inputs()
     snap_d, extras_d = to_device(ssn.snap, "cuda"), to_device(extras, "cuda")
-    cycle = make_allocate_cycle(cfg)
-    cycle(snap_d, extras_d).packed_decisions().cpu()      # build + warm
+    try:
+        from volcano_tpu_torch.ops import shard_placer as sp
+        mesh = dict(mesh=ssn._sharding_mesh())
+    except ImportError:                   # a tree from before the kernel
+        sp, mesh = None, {}
+    cycle = make_allocate_cycle(cfg, **mesh)
+
+    class Stop(Exception):
+        pass
+
+    def window(place, seen, limit):
+        def placer(*a):
+            if len(seen) >= limit:
+                raise Stop()
+            seen.append(1)
+            return place(*a)
+        return placer
+
+    def windowed(limit, seen, **seams):
+        """The cycle's placers behind a window of ``limit`` launches."""
+        seams = {k: window(v, seen, limit) for k, v in seams.items()}
+        return make_allocate_cycle(cfg, **mesh, **seams)
+
+    all_seams = dict(placer=rp.round_place, dyn_placer=dp.dyn_place)
+    if sp is not None:
+        all_seams["shard_placer"] = sp.shard_candidates
+    try:                                  # build + warm
+        (windowed(args.window, [], **all_seams) if args.window
+         else cycle)(snap_d, extras_d).packed_decisions().cpu()
+    except Stop:
+        torch.cuda.synchronize()
 
     try:
         from volcano_tpu_torch.ops import seg_fold as sf
@@ -120,6 +157,8 @@ def main():
         rp.launches = dp.launches = 0
         if sf is not None:
             sf.launches = 0
+        if sp is not None:
+            sp.launches = sp.pops = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cycle(snap_d, extras_d).packed_decisions().cpu()
@@ -127,21 +166,11 @@ def main():
     launches = {"round_placer": rp.launches, "dyn_placer": dp.launches,
                 "seg_fold": sf.launches if sf is not None else None,
                 "pod_affinity": (getattr(rp, "aff_launches", 0)
-                                 + getattr(dp, "aff_launches", 0))}
-
-    class Stop(Exception):
-        pass
+                                 + getattr(dp, "aff_launches", 0)),
+                "shard_candidates": sp.launches if sp is not None else None,
+                "shard_pops": sp.pops if sp is not None else None}
 
     seen = []
-
-    def window(place):
-        def placer(*a):
-            if len(seen) >= args.window:
-                raise Stop()
-            seen.append(1)
-            return place(*a)
-        return placer
-
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def span(name, fn):
@@ -150,17 +179,23 @@ def main():
                 return fn(*a, **kw)
         return wrapped
 
-    place, place_dyn = rp.round_place, dp.dyn_place
+    seams = dict(all_seams)
     if args.window:
-        place, place_dyn = window(place), window(place_dyn)
-    profiled = make_allocate_cycle(cfg, placer=span("round_placer", place),
-                                   dyn_placer=span("dyn_placer", place_dyn))
+        seams = {k: window(v, seen, args.window) for k, v in seams.items()}
+    names = dict(placer="round_placer", dyn_placer="dyn_placer",
+                 shard_placer="shard_placer")
+    profiled = make_allocate_cycle(
+        cfg, **mesh, **{k: span(names[k], v) for k, v in seams.items()})
     steps = ["namespace_shares", "drf_job_shares", "hdrf_level_keys",
              "lex_argmin", "gather_slot_tables"]
     steps = [n for n in steps if hasattr(tas, n)]   # a tree before a step
     for name in steps:
         setattr(tas, name, span(name, getattr(tas, name)))
-    steps += ["round_placer", "dyn_placer"]
+    if sp is not None:
+        sp.combine = span("combine", sp.combine)
+        sp.pops = 0
+        steps.append("combine")
+    steps += [names[k] for k in seams]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -214,13 +249,26 @@ def main():
         "waits_by_name": {k: {"calls": v[0], "ms": v[1]}
                           for k, v in waits.items()},
     }
-    rounds = len(seen) if args.window else (launches["round_placer"]
-                                            + launches["dyn_placer"])
-    if rounds:
-        out["per_launch"] = {
-            "host_ms_by_step": {k: v[1] / rounds
-                                for k, v in host_steps.items()},
-            "waits_by_name": {k: v[0] / rounds for k, v in waits.items()}}
+    if args.cell == "sharded":
+        # per pop and per attempt (one kernel-4 launch an attempt)
+        attempts = len(seen) if args.window else launches["shard_candidates"]
+        denoms = {"per_pop": sp.pops, "per_attempt": attempts}
+        out["profiled_pops"] = sp.pops
+        shard_dev = by_name.get(next((k for k in by_name
+                                      if "shard_cand_kernel" in k), ""))
+        if shard_dev:
+            out["shard_kernel_device_ms_per_launch"] = (shard_dev[1]
+                                                        / shard_dev[0])
+    else:
+        rounds = len(seen) if args.window else (launches["round_placer"]
+                                                + launches["dyn_placer"])
+        denoms = {"per_launch": rounds}
+    for key, n in denoms.items():
+        if n:
+            out[key] = {
+                "host_ms_by_step": {k: v[1] / n
+                                    for k, v in host_steps.items()},
+                "waits_by_name": {k: v[0] / n for k, v in waits.items()}}
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 round placer (with and without its pod-affinity step), the pod-affinity
-step in the dynamic-key placer, and the segmented sum.
+step in the dynamic-key placer, the segmented sum and the shard-local
+candidate search; and the sharded cycle's waits on the card.
 
 Imports nothing of JAX, so it runs on a machine with a card and no JAX:
 
@@ -16,6 +17,8 @@ from torch_fixtures import (AFF_CASES, CASES, PLACER_WEIGHTS,
                             aff_placer_knobs, make_dyn_inputs, make_inputs)
 from volcano_tpu_torch.ops import dyn_placer as dp
 from volcano_tpu_torch.ops import round_placer as rp
+from volcano_tpu_torch.ops import shard_placer as sp
+from volcano_tpu_torch.ops.dyn_cases import SHARD_CASES, make_shard_inputs
 from volcano_tpu_torch.ops.allocate_scan import AllocateConfig
 
 
@@ -186,3 +189,99 @@ def test_fair_shares_on_the_card_match_the_cpu():
                               *[x.cuda() for x in args])
     assert got.is_cuda
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# ---- the shard-local candidate search (kernel 4) -----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gpu", [False, True])
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(SHARD_CASES))
+def test_shard_kernel_matches_plain_bitwise(case, D, gpu):
+    need_card()
+    cfg = AllocateConfig(enable_gpu=gpu, **PLACER_WEIGHTS)
+    for seed in (0, 1):
+        t = [torch.from_numpy(a).cuda() for a in
+             make_shard_inputs(seed, D=D, gpu=gpu, **SHARD_CASES[case])]
+        want = sp.shard_candidates_plain_all(cfg, D, t)
+        before = sp.launches
+        got = sp.shard_candidates(cfg, D, t)
+        torch.cuda.synchronize()
+        assert sp.launches == before + 1
+        assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_shard_kernel_at_full_width():
+    """One shard of 10,240 rows and four of 2,560 (the north star's
+    shapes): more rows than threads in a block."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=False, binpack_weight=1.0)
+    for D, NL in ((1, 10240), (4, 2560)):
+        t = [torch.from_numpy(a).cuda() for a in
+             make_shard_inputs(3, D=D, NL=NL, ties=True)]
+        assert_same(sp.shard_candidates(cfg, D, t),
+                    sp.shard_candidates_plain_all(cfg, D, t))
+
+
+@pytest.mark.cuda
+def test_shard_kernel_rejects_wrong_layout():
+    need_card()
+    cfg = AllocateConfig(enable_gpu=False, **PLACER_WEIGHTS)
+    t = [torch.from_numpy(a).cuda() for a in make_shard_inputs(0, D=2)]
+    t[-3] = t[-3].T.contiguous().T          # idle, transposed layout
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.shard_candidates_cuda(cfg, 2, t)
+    t = [torch.from_numpy(a).cuda() for a in make_shard_inputs(0, D=2)]
+    with pytest.raises(ValueError, match="do not split"):
+        sp.shard_candidates_cuda(cfg, 5, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_path", [False, True])
+def test_cycle_copies_nothing_to_the_card_and_waits_once_a_round(mesh_path):
+    """On the card, the static-key cycle's rounds and the sharded cycle's
+    pops make no host-to-device copy, and the host waits for the card
+    once a round or pop (the readback), beside a few waits of the
+    cycle's set-up."""
+    need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from volcano_tpu_torch.arrays import pack, to_device
+    from volcano_tpu_torch.ops.allocate_scan import (AllocateExtras,
+                                                     derive_batching,
+                                                     make_allocate_cycle)
+    from volcano_tpu_torch.parallel import NodeMesh
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    snap, _ = pack(_synthetic_cluster(512, 48, 8))
+    s = to_device(snap, "cuda")
+    e = to_device(AllocateExtras.neutral(snap), "cuda")
+    cfg = AllocateConfig(binpack_weight=1.0, enable_gpu=False)
+    if mesh_path:
+        cycle = make_allocate_cycle(cfg, mesh=NodeMesh(("cuda",) * 2))
+    else:
+        cycle = make_allocate_cycle(derive_batching(cfg,
+                                                    has_proportion=False))
+    cycle(s, e).packed_decisions().cpu()
+    rp.launches = sp.pops = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cycle(s, e).packed_decisions().cpu()
+    rounds = sp.pops if mesh_path else rp.launches
+    htod = [ev for ev in prof.events() if "HtoD" in ev.name]
+    syncs = [ev for ev in prof.events()
+             if ev.name == "cudaStreamSynchronize"]
+    assert rounds > 4
+    assert htod == []
+    assert rounds <= len(syncs) <= rounds + 8
+
+
+@pytest.mark.cuda
+def test_mesh_over_the_cards():
+    """scheduler_mesh and mesh_for_nodes take the visible cards; one card
+    gives one shard."""
+    need_card()
+    from volcano_tpu_torch.parallel import mesh_for_nodes, scheduler_mesh
+    n = torch.cuda.device_count()
+    assert scheduler_mesh().size == n
+    assert mesh_for_nodes(10240, 1).devices == (torch.device("cuda", 0),)

@@ -169,8 +169,9 @@ def test_hierarchy_matches_jax():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports, and a session runs, with ``jax``
-    and ``volcano_tpu`` blocked."""
+    """Every module of the port imports (``parallel/`` and
+    ``ops/shard_placer.py`` among them), and a session runs, with ``jax``
+    and ``volcano_tpu`` blocked; with ``sharding: true`` too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'volcano_tpu'):\n"
@@ -188,6 +189,15 @@ def test_port_imports_without_jax():
         "ssn = Session(_synthetic_cluster(16, 8, 4), conf, device='cpu')\n"
         "ssn.run_allocate()\n"
         "assert ssn.binds\n"
+        "conf.sharding = True\n"
+        "sharded = Session(_synthetic_cluster(16, 8, 4), conf, device='cpu')\n"
+        "sharded.run_allocate()\n"
+        "assert sharded._sharding_mesh().size == 1\n"
+        "assert [b.node_name for b in sharded.binds] == "
+        "[b.node_name for b in ssn.binds]\n"
+        "for m in ('volcano_tpu_torch.parallel.sharding',\n"
+        "          'volcano_tpu_torch.ops.shard_placer'):\n"
+        "    assert m in sys.modules, m\n"
         "assert not any(k.split('.')[0] in ('jax', 'volcano_tpu')\n"
         "               and v is not None for k, v in sys.modules.items())\n"
         "print('ok')\n")

@@ -10,6 +10,7 @@ tests can use it on a machine without JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 
 import numpy as np
@@ -277,3 +278,108 @@ def pod_affinity_cluster(api, seed, n_nodes, n_jobs, zones=8, racks=32,
         ci.nodes[nodes[int(rng.integers(len(nodes)))]].add_task(t)
     ci.add_job(seedjob)
     return ci
+
+
+# --------------------------------------------------------------------------
+# the sharded cycle's scenarios (tests/test_torch_sharded*.py)
+# --------------------------------------------------------------------------
+
+#: shard_map's deprecation (ROADMAP section 3 (b)), ignored by the tests
+#: that run the JAX sharded cycle, and only by them
+SHARD_MAP_WARNING = ("ignore:jax.experimental.shard_map is deprecated"
+                     ":DeprecationWarning")
+
+GANG_BINPACK = ("actions: allocate\ntiers:\n- plugins:\n  - name: gang\n"
+                "  - name: binpack\n")
+HDRF = ("actions: allocate\ntiers:\n- plugins:\n  - name: gang\n"
+        "  - name: drf\n    enableHierarchy: true\n  - name: predicates\n"
+        "  - name: nodeorder\n  - name: binpack\n")
+
+
+def shipped_conf_text() -> str:
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "conf", "volcano-scheduler.conf")) as f:
+        return f.read()
+
+
+def synthetic_256(api):
+    """The reference's ``_synthetic_cluster(256, 32, 8)`` with ``api``."""
+    import volcano_tpu.api as japi
+    if api is japi:
+        from __graft_entry__ import _synthetic_cluster
+    else:
+        from volcano_tpu_torch.synthetic import _synthetic_cluster
+    return _synthetic_cluster(256, 32, 8)
+
+
+#: (function making the cluster, conf text: None for the raw cycle,
+#: "default" for the built-in conf); the raw cycle is
+#: ``dryrun_multichip``'s configuration, binpack 1 with neutral extras
+SHARDED_SCENARIOS = {
+    "gang_binpack_raw": (synthetic_256, None),
+    "builtin_default": (synthetic_256, "default"),
+    "shipped": (synthetic_256, "shipped"),
+    "hdrf": (lambda api: hdrf_cluster(api, *HDRF_SCENARIO), HDRF),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def sharded_inputs(name):
+    """(JAX cfg, snapshot, extras) of a sharded scenario, as the JAX
+    Session derives them (the raw cycle: pack and neutral extras)."""
+    import volcano_tpu.api as japi
+    from volcano_tpu.arrays import pack
+    from volcano_tpu.framework import Session as JaxSession
+    from volcano_tpu.framework import parse_conf as jax_parse_conf
+    from volcano_tpu.ops.allocate_scan import AllocateConfig, AllocateExtras
+    build, conf = SHARDED_SCENARIOS[name]
+    if conf is None:
+        snap, _ = pack(build(japi))
+        return (AllocateConfig(binpack_weight=1.0), snap,
+                AllocateExtras.neutral(snap))
+    text = {"default": None, "shipped": shipped_conf_text()}.get(conf, conf)
+    ssn = JaxSession(build(japi), jax_parse_conf(text))
+    cfg, extras = ssn._derived_allocate_inputs()
+    return cfg, ssn.snap, extras
+
+
+@functools.lru_cache(maxsize=None)
+def jax_sharded_packed(name, D):
+    """The JAX sharded cycle's packed decisions: the shard-local candidate
+    kernel in interpret mode under shard_map on D virtual devices."""
+    from volcano_tpu.parallel.sharding import make_sharded_allocate
+    from volcano_tpu.parallel.sharding import scheduler_mesh
+    cfg, snap, extras = sharded_inputs(name)
+    fn = make_sharded_allocate(dataclasses.replace(cfg, use_pallas="interpret"),
+                               scheduler_mesh(D), snap)
+    return np.asarray(fn(snap, extras).packed_decisions())
+
+
+@functools.lru_cache(maxsize=None)
+def jax_scan_packed(name):
+    """The JAX scan path's packed decisions (no kernel, one pop a round)."""
+    import jax
+    from volcano_tpu.ops.allocate_scan import make_allocate_cycle
+    cfg, snap, extras = sharded_inputs(name)
+    return np.asarray(jax.jit(make_allocate_cycle(dataclasses.replace(
+        cfg, use_pallas=False)))(snap, extras).packed_decisions())
+
+
+def port_sharded_packed(name, D):
+    """The port's ``make_sharded_allocate`` on D virtual shards of the CPU."""
+    import torch
+
+    from volcano_tpu_torch.parallel import NodeMesh, make_sharded_allocate
+    cfg, snap, extras = sharded_inputs(name)
+    s, e = port_inputs(snap, extras)
+    fn = make_sharded_allocate(port_cfg(cfg),
+                               NodeMesh((torch.device("cpu"),) * D), s)
+    return fn(s, e).packed_decisions().numpy()
+
+
+def need_jax_devices(n):
+    import jax
+    import pytest
+    if len(jax.devices()) < n:
+        pytest.skip(f"needs {n} virtual JAX devices")

@@ -19,6 +19,9 @@ Layering:
                                     (``csrc/round_placer.cu``,
                                     ``csrc/dyn_placer.cu``, sharing
                                     ``csrc/placement.cuh``).
+- ``volcano_tpu_torch.parallel``  — the node mesh and the sharded allocate
+                                    cycle (the shard-local candidate
+                                    kernel, ``csrc/shard_candidates.cu``).
 - ``volcano_tpu_torch.plugins``   — policy plugins contributing weights and keys.
 - ``volcano_tpu_torch.framework`` — conf, host-side extras and the Session.
 

@@ -118,17 +118,14 @@ class SchedulerConfiguration:
     #: must exceed the cold-compile cycle). YAML: top-level
     #: ``cycle_deadline_ms: 500``.
     cycle_deadline_ms: Optional[float] = None
-    #: node-axis sharded execution over a device mesh (
-    #: parallel/sharding + ops/fused_io.ShardedDeltaKernel): the resident
-    #: snapshot buffers split along the node axis, deltas route to the
-    #: owning shard, and the cycle runs under GSPMD with
-    #: out_shardings == in_shardings across iterations. Decisions are
-    #: bit-identical to the unsharded path. Composes with ``use_pallas``:
-    #: the placer runs as a shard-local pallas candidate launch with an
-    #: in-graph cross-shard argmax combine (ops/allocate_scan)
-    #: rather than being forced back to the scan. Requires the delta path
-    #: (``delta_uploads: true``, the default) — with delta uploads off the
-    #: knob is ignored. YAML: top-level ``sharding: true``.
+    #: node-axis sharded allocate cycle over a device mesh
+    #: (parallel/sharding.py): one pop and one attempt at a time, each
+    #: attempt one launch of the shard-local candidate kernel over every
+    #: shard, the shards' winners combined as the reference combines them.
+    #: Decisions are bit-identical to the unsharded path. Requires the
+    #: delta path (``delta_uploads: true``, the default), as in the
+    #: reference: with delta uploads off the knob is ignored. YAML:
+    #: top-level ``sharding: true``.
     sharding: bool = False
     #: device-count cap for the sharded mesh (None = all local devices);
     #: the effective mesh is the largest power of two <= this that divides

@@ -13,9 +13,14 @@ plugin instances + Allocate/Pipeline ops) and framework.go:29-63
   commit boundary, statement.go:377-395: the cycle already committed or
   discarded each gang, so apply is a readout).
 
+With conf ``sharding: true`` the allocate cycle splits the node axis over
+a mesh of the session's device (``parallel/sharding.py``): one pop and one
+attempt at a time through the shard-local candidate kernel.
+
 Not carried yet (ROADMAP): incremental refresh, device-resident delta
-uploads, pipelined dispatch, sharding, the CPU-oracle rung, metrics and
-trace spans, and the enqueue / backfill / preempt passes.
+uploads, pipelined dispatch, a mesh over several cards, the CPU-oracle
+rung, metrics and trace spans, and the enqueue / backfill / preempt
+passes.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import types
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..api import ClusterInfo, PodGroupPhase, TaskStatus, gpu_request_of
 from ..api.resource import Resource
@@ -270,6 +276,23 @@ class Session:
             cfg = dataclasses.replace(cfg, enable_gpu=False)
         return cfg, extras
 
+    def _sharding_mesh(self):
+        """The node mesh the allocate cycle runs on, or None when the conf
+        leaves sharding off (or turns delta uploads off: the reference
+        shards only its delta path). Sized per the snapshot's node bucket
+        (``parallel/sharding.mesh_for_nodes``) over the visible cards, or
+        over the CPU for a CPU session."""
+        if not bool(getattr(self.conf, "sharding", False)):
+            return None
+        if not bool(getattr(self.conf, "delta_uploads", True)):
+            return None
+        from ..parallel.sharding import mesh_for_nodes
+        dev = torch.device(self.device)
+        n_nodes = int(np.asarray(self.snap.nodes.valid).shape[0])
+        return mesh_for_nodes(n_nodes,
+                              getattr(self.conf, "sharding_devices", None),
+                              devices=None if dev.type == "cuda" else [dev])
+
     # --------------------------------------------------------- pass runner
     def run_allocate(self):
         """Upload the snapshot to the session's device, run the allocate
@@ -278,7 +301,8 @@ class Session:
         cfg, extras = self._derived_allocate_inputs()
         snap_d = to_device(self.snap, self.device)
         extras_d = to_device(extras, self.device)
-        result = make_allocate_cycle(cfg)(snap_d, extras_d)
+        result = make_allocate_cycle(cfg, mesh=self._sharding_mesh())(
+            snap_d, extras_d)
         packed = result.packed_decisions().cpu().numpy()
         self.stats["cycle_ms"] = (time.perf_counter() - t0) * 1000
         T = self.snap.tasks.status.shape[0]

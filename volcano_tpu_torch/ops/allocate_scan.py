@@ -50,6 +50,7 @@ from . import dyn_placer as dp
 from . import predicates as P
 from . import round_placer
 from . import scoring as S
+from . import shard_placer as sp
 from .fairshare import drf_job_shares, hdrf_level_keys, namespace_shares
 from .round_placer import MODE_ALLOCATED, MODE_NONE, MODE_PIPELINED
 from .select import lex_argmin
@@ -241,10 +242,21 @@ def unpack_decisions(packed, T: int, J: int):
             packed[3 * T + 2 * J:3 * T + 3 * J].astype(bool))
 
 
-def _check_supported(cfg: AllocateConfig) -> None:
+def _check_supported(cfg: AllocateConfig, mesh=None) -> None:
     """Raise for the configurations this slice of the port does not carry,
     naming the ROADMAP item that ports each."""
-    todo = [
+    todo = []
+    if mesh is not None:
+        mesh.device()          # one device: a multi-device mesh raises
+        todo = [
+            (cfg.enable_pod_affinity, "enable_pod_affinity under a node mesh",
+             "ROADMAP queue 1 item 6d: the reference runs it on its plain "
+             "scan path, without the shard-local kernel"),
+            (cfg.wave_width > 1, "wave_width > 1 under a node mesh",
+             "ROADMAP queue 1 item 6b, kernel 5 and the wavefront section "
+             "walk"),
+        ]
+    todo += [
         (cfg.enable_host_ports, "enable_host_ports",
          "ROADMAP queue 1 item 4b, host ports: the reference runs them on "
          "its scan path only, so they need a per-task path in the port"),
@@ -321,23 +333,244 @@ def _dyn_static_args(cfg, snap, extras, keys_static):
                 tgt=tgt)
 
 
-def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None):
+def _sharded_pops(cfg, D, place_shard, snap, extras, node_env, eligible,
+                  order_keys, jobs_min_req, st, max_rounds):
+    """The sharded scan path of :func:`make_allocate_cycle`: pops until no
+    job is eligible, each pop one job's slots in slot order, one attempt a
+    slot. ``st`` holds the cycle's state tensors, which are updated in place
+    (``eligible`` and ``order_keys`` read them); returns the final idle
+    [R, N].
+
+    Everything stays on the device: the popped job, its slots, the combined
+    winner and every flag are tensors, the commits are ``index_add_`` and
+    index writes on device indices, and the host reads the state back once
+    a pop (whether any job is eligible, whether the last pop progressed,
+    and which slots are open: the attempts run over those only, as the
+    reference's steps of closed slots change nothing)."""
+    nodes, tasks, jobs = snap.nodes, snap.tasks, snap.jobs
+    dev = nodes.idle.device
+    f32, i32 = torch.float32, torch.int32
+    N, R = nodes.idle.shape
+    T = tasks.resreq.shape[0]
+    J, M = jobs.task_table.shape
+    if N % D:
+        raise ValueError(f"sharding needs nodes % mesh devices == 0 "
+                         f"(N={N}, devices={D})")
+    keys_static = not (cfg.drf_job_order or cfg.drf_ns_order
+                       or cfg.enable_hdrf)
+    target_job = int(extras.target_job)
+    idle, pipe, pods, gpux = st["idle"], st["pipe"], st["pods"], st["gpux"]
+    task_node, task_mode, task_gpu = (st["task_node"], st["task_mode"],
+                                      st["task_gpu"])
+    job_done, job_popped = st["job_done"], st["job_popped"]
+    job_cursor, job_alloc_count = st["job_cursor"], st["job_alloc_count"]
+    queue_allocated = st["queue_allocated"]
+
+    # the candidate kernel's node maps: releasing and pipelined apart, for
+    # the scan association of future idle
+    rel_t = nodes.releasing.T.contiguous()
+    pip_t = nodes.pipelined.T.contiguous()
+    shard_env = node_env[:8] + [rel_t, pip_t] + node_env[9:]
+    # the scan path picks a GPU card at every commit, with or without the
+    # GPU predicate; a snapshot with no GPU request never charges one
+    gpu_pick = bool(cfg.enable_gpu) or bool((tasks.gpu_request > 0).any())
+    gidle0_t = (nodes.gpu_memory - nodes.gpu_used).T.contiguous()
+    # per-task kernel inputs, gathered for a pop's slots once
+    treq = (torch.cat([tasks.resreq, tasks.gpu_request[:, None]], 1)
+            if cfg.enable_gpu else tasks.resreq).to(f32).contiguous()
+    tint = torch.stack([
+        extras.task_pref_node, tasks.template.clamp_min(0),
+        extras.task_or_group, extras.task_volume_node,
+        extras.task_volume_ok.to(i32), extras.task_revocable.to(i32)],
+        1).to(i32).contiguous()
+    not_be = ~tasks.best_effort
+    node_live = nodes.valid & nodes.schedulable
+    des_finite = torch.isfinite(extras.queue_deserved)
+    job_q = jobs.queue.long()
+    slots = torch.arange(M, dtype=i32, device=dev)
+    neg_inf = torch.full((), float("-inf"), device=dev)
+
+    def zeros(dtype):
+        return torch.zeros(1, dtype=dtype, device=dev)
+
+    progressed = torch.ones((), dtype=torch.bool, device=dev)
+    rounds = 0
+    while True:
+        # ---- the pop: lexicographic argmin of the live ordering keys
+        elig = eligible()
+        keys, _ = order_keys()
+        ji, _ = lex_argmin(keys, elig)
+        jl = ji.long().view(1)
+        task_ids = jobs.task_table.index_select(0, jl)[0]            # [M]
+        cur = job_cursor.index_select(0, jl)
+        open_slot = (task_ids >= 0) & (slots >= cur)
+        # the pop's one readback: whether any job is eligible, whether the
+        # last pop progressed, and the open slots' range; a slot outside
+        # it cannot run, and its step would change no bit of the state
+        go, prog, lo, hi = torch.stack([
+            elig.any().to(i32), progressed.to(i32), cur[0],
+            torch.where(open_slot, slots + 1, 0).max()]).tolist()
+        if not go or rounds >= max_rounds:
+            break
+        give_up = None
+        if not prog:
+            # jobs whose cheapest request exceeds every node's idle and
+            # future idle (scan association): batch-finish them
+            fut = (((idle + rel_t) - pip_t) - pipe).clamp_min(0.0)
+            bound = torch.where(node_live[None, :], torch.maximum(idle, fut),
+                                neg_inf).max(dim=1).values          # [R]
+            give_up = elig & (jobs_min_req > bound + _EPS_FIT).any(-1)
+
+        tcl = task_ids.clamp_min(0).long()
+        min_avail = jobs.min_available.index_select(0, jl)           # [1]
+        ready0 = (jobs.ready_num.index_select(0, jl)
+                  + job_alloc_count.index_select(0, jl))
+        qi = job_q.index_select(0, jl)
+        if keys_static:
+            # any finite deserved (including 0) disqualifies re-pop fusion
+            can_batch = ~des_finite.index_select(0, qi).any(1)
+        else:
+            can_batch = zeros(torch.bool)
+        nbe = not_be[tcl]
+        nb_row = (open_slot & nbe).to(i32)
+        # real tasks remaining strictly after slot m (allocate.go:262)
+        suffix_after = nb_row.flip(0).cumsum(0, dtype=i32).flip(0) - nb_row
+        req_p = treq.index_select(0, tcl)                       # [M, R(+1)]
+        int_p = tint.index_select(0, tcl)                       # [M, 6]
+        greq_p = tasks.gpu_request.index_select(0, tcl)         # [M]
+        istgt = (ji == target_job).to(i32).view(1, 1)
+        saved = [idle.clone(), pipe.clone(), pods.clone(),
+                 gpux.clone() if gpu_pick else None]
+
+        n_alloc, n_pipe, n_adv = zeros(i32), zeros(i32), zeros(i32)
+        placed_sum = torch.zeros(R, dtype=f32, device=dev)
+        stopped, broke = zeros(torch.bool), zeros(torch.bool)
+        for m in range(lo, hi):
+            # ---- task_step (allocate_scan.py:1841-2080, the shard side)
+            can_run = open_slot[m] & ~(stopped | broke)
+            active = can_run & nbe[m]
+            args = [req_p[m:m + 1], int_p[m:m + 1], istgt] + shard_env
+            args += [idle, pipe, pods] + ([gpux] if cfg.enable_gpu else [])
+            idx, found, _ = sp.combine(place_shard(cfg, D, args), N)
+            can_now = found[0:1] & active
+            can_fut = found[1:2] & active & bool(cfg.enable_pipelining)
+            do_alloc = can_now
+            do_pipe = ~can_now & can_fut
+            placed = do_alloc | do_pipe
+            node = torch.where(do_alloc, idx[0:1], idx[1:2]).long()  # [1]
+            rr = req_p[m, :R]
+            idle.index_add_(1, node, (-(do_alloc.to(f32) * rr))[:, None])
+            pipe.index_add_(1, node, (do_pipe.to(f32) * rr)[:, None])
+            pods.index_add_(1, node, placed.to(f32)[None, :])
+            t1 = tcl[m:m + 1]
+            if gpu_pick:
+                # shared-GPU card: lowest fitting card on the chosen node
+                # (predicates.pick_gpu_row), charged for the cycle
+                gr = greq_p[m]
+                col = (gidle0_t.index_select(1, node)
+                       - gpux.index_select(1, node))[:, 0]          # [G]
+                fits = col >= gr - _EPS_FIT
+                card = torch.where(fits.any() & (gr > 0),
+                                   fits.to(torch.uint8).argmax(), -1)
+                charge = placed & (card >= 0)
+                gpux.view(-1).index_add_(
+                    0, card.clamp_min(0) * N + node,
+                    torch.where(charge, gr, 0.0))
+                task_gpu[torch.where(charge, t1, T)] = card.to(i32).view(1)
+            tw = torch.where(placed, t1, T)
+            task_node[tw] = node.to(i32)
+            task_mode[tw] = torch.where(do_alloc, MODE_ALLOCATED,
+                                        MODE_PIPELINED).to(i32)
+            n_alloc += do_alloc
+            n_pipe += do_pipe
+            placed_sum = placed_sum + placed.to(f32) * rr
+            n_adv += can_run
+            # yield: a ready job with tasks still queued re-enters the job
+            # queue after each placement (allocate.go:262-265); break: a
+            # task no node can take fails the job (allocate.go:210-214)
+            if cfg.enable_gang:
+                ready_aft = (ready0 + n_alloc) >= min_avail
+                stopped |= (active & placed & ready_aft
+                            & (suffix_after[m] > 0) & ~can_batch)
+            else:
+                stopped |= active & placed & (suffix_after[m] > 0) & ~can_batch
+            broke |= active & ~placed
+
+        # ---- gang finalize: JobReady / JobPipelined / Discard
+        # (allocate_scan.py:2440-2537)
+        if cfg.enable_gang:
+            ready = (ready0 + n_alloc) >= min_avail
+        else:
+            ready = torch.ones(1, dtype=torch.bool, device=dev)
+        pipelined = (ready0 + n_alloc + n_pipe) >= min_avail
+        keep = ready | pipelined
+        # a discard copies the state at the pop's start back
+        # (statement.go:352-374)
+        idle = torch.where(keep, idle, saved[0])
+        pipe = torch.where(keep, pipe, saved[1])
+        pods = torch.where(keep, pods, saved[2])
+        if gpu_pick:
+            gpux = torch.where(keep, gpux, saved[3])
+        job_tasks = tasks.job == ji
+        clear = job_tasks & ~keep
+        task_node[:T].masked_fill_(clear, -1)
+        task_mode[:T].masked_fill_(clear, MODE_NONE)
+        task_gpu[:T].masked_fill_(clear, -1)
+        # a kept-but-unready gang holds capacity without binding: demote
+        # its Allocated placements (session.go:317-330)
+        demote = job_tasks & (keep & ~ready) & (task_mode[:T] == MODE_ALLOCATED)
+        task_mode[:T].masked_fill_(demote, MODE_PIPELINED)
+        # queue + drf accounting of the kept placements (proportion.go
+        # :281-325, drf.go:511-536)
+        committed = keep.to(f32) * placed_sum                         # [R]
+        queue_allocated.index_add_(0, qi, committed[None, :])
+        if give_up is not None:
+            job_done[:J] |= give_up
+            job_popped[:J] |= give_up
+        job_done[jl] = ~stopped
+        job_popped[jl] = torch.ones_like(stopped)
+        st["job_ready"][jl] = ready
+        st["job_pipelined"][jl] = pipelined & ~ready
+        job_cursor.index_add_(0, jl, n_adv)
+        job_alloc_count.index_add_(0, jl, torch.where(keep, n_alloc, 0))
+        st["job_alloc_dyn"].index_add_(0, jl, committed[None, :])
+        rounds += 1
+        sp.pops += 1
+        progressed = ((n_alloc > 0) | pipelined | ready).reshape(())
+    return idle
+
+
+def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
+                        mesh=None, shard_placer=None):
     """Build the allocate pass for a static config.
 
     Returned signature: ``allocate(snap, extras) -> AllocateResult`` with
     ``snap``/``extras`` dataclass trees of tensors on one device
     (``arrays.schema.to_device``). ``placer`` replaces the static-key round
-    placer (``round_placer.round_place``) and ``dyn_placer`` the
-    dynamic-key one (``dyn_placer.dyn_place``), each with the same
-    signature; callers use them to run the plain versions on the card or
-    to watch the launches.
+    placer (``round_placer.round_place``), ``dyn_placer`` the dynamic-key
+    one (``dyn_placer.dyn_place``) and ``shard_placer`` the shard-local
+    candidate search (``shard_placer.shard_candidates``), each with the
+    same signature; callers use them to run the plain versions on the card
+    or to watch the launches.
+
+    ``mesh`` (``parallel.sharding.NodeMesh``): the node axis split into
+    ``mesh.size`` shards. The cycle then takes the reference's sharded scan
+    path (allocate_scan.py:596-607, :1841-2080, :2440-2537): one pop at a
+    time with the ordering keys recomputed every pop, and for each of the
+    popped job's slots one attempt whose feasibility -> score -> argmax runs
+    shard-local in the candidate kernel (one launch covers every shard of
+    the device), the shards' winners combined as the reference combines
+    them, and the commit, the gang finalize and the queue and drf
+    accounting in tensor code. The batching fields are ignored there, as
+    the reference ignores them off its fused placers.
     """
-    _check_supported(cfg)
+    _check_supported(cfg, mesh)
     place = placer or round_placer.round_place
     place_dyn = dyn_placer or dp.dyn_place
+    place_shard = shard_placer or sp.shard_candidates
     K = max(1, int(cfg.batch_jobs))
     KP = max(0, int(cfg.batch_rounds))
-    dyn = KP > 0
+    dyn = KP > 0 and mesh is None
     keys_static = not (cfg.drf_job_order or cfg.drf_ns_order
                        or cfg.enable_hdrf)
     f32, i32 = torch.float32, torch.int32
@@ -488,6 +721,25 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None):
                 & (jobs.min_available > 0)
             keys += [ready_now.to(f32), job_share, jobs.creation_rank.to(f32)]
             return keys, hcols
+
+        if mesh is not None:
+            idle = _sharded_pops(
+                cfg, mesh.size, place_shard, snap, extras, node_env,
+                eligible, order_keys, jobs_min_req, dict(
+                    idle=idle, pipe=pipe, pods=pods, gpux=gpux,
+                    task_node=task_node, task_mode=task_mode,
+                    task_gpu=task_gpu, job_done=job_done,
+                    job_popped=job_popped, job_ready=job_ready,
+                    job_pipelined=job_pipelined, job_cursor=job_cursor,
+                    job_alloc_count=job_alloc_count,
+                    job_alloc_dyn=job_alloc_dyn,
+                    queue_allocated=queue_allocated), max_rounds)
+            return AllocateResult(
+                task_node=task_node[:T], task_mode=task_mode[:T],
+                task_gpu=task_gpu[:T], job_ready=job_ready[:J],
+                job_pipelined=job_pipelined[:J],
+                job_attempted=job_popped[:J], idle=idle.T,
+                queue_allocated=queue_allocated[:Q])
 
         if dyn:
             dyn_static = _dyn_static_args(cfg, snap, extras, keys_static)
@@ -717,7 +969,9 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None):
             job_popped = job_popped | torch.cat([give_up,
                                                  give_up.new_zeros(1)])
             job_done[jdrop] = ~stopped_vec
-            job_popped[jdrop] = True
+            # a tensor value: a Python scalar would be copied from the host
+            # and make the round wait for the stream
+            job_popped[jdrop] = torch.ones_like(secact)
             job_ready[jdrop] = ready_vec
             job_pipelined[jdrop] = pipelined_vec
             # real rows of jdrop are distinct, so each gets exactly one add

@@ -13,6 +13,11 @@
   escape, own and symmetric required anti-affinity, negative preferred
   weights, no live node, and a gang discard that must take the counts
   back.
+- :func:`make_shard_inputs` and :data:`SHARD_CASES`: the shard-local
+  candidate search (``ops/shard_placer.py``): ties planted across shards,
+  a shard with no feasible row, the preferred node, a volume pin, locks
+  and the target job, OR groups, the revocable bonus and taint-prefer
+  rows, with GPU cards and without.
 
 The CPU tests hold the plain versions against the reference's Pallas
 kernels in interpret mode on these inputs, and ``chip_smoke.py`` holds the
@@ -416,3 +421,89 @@ def make_dyn_inputs(seed, C=4, KP=12, M=4, J=24, Q=3, S=2, N=40, R=2, G=2,
     args = [np.ascontiguousarray(src[k]) for k in order_names
             if optional.get(k, True)]
     return flags, args
+
+
+#: shard candidate cases: knobs of make_shard_inputs
+SHARD_CASES = {
+    "mixed": dict(),
+    "ties_across_shards": dict(ties=True),
+    "infeasible_shard": dict(infeasible_shard=True),
+    "nothing_feasible": dict(nothing=True),
+    "preferred_node": dict(pref=True),
+    "volume_pin": dict(volpin=True),
+    "locked_target": dict(locked_target=True),
+    "or_group_revocable": dict(or_group=True, rev=True),
+}
+
+
+def make_shard_inputs(seed, D=2, NL=48, R=2, P=3, GR=2, G=2, gpu=False,
+                      ties=False, infeasible_shard=False, nothing=False,
+                      pref=False, volpin=False, locked_target=False,
+                      or_group=False, rev=False):
+    """The shard placer's full-width arguments (``shard_placer.ShardArgs``
+    order, GPU entries only with ``gpu``) over D shards of NL rows.
+
+    ``ties`` makes every shard a copy of shard 0 (equal scores in every
+    shard, so the combine must keep the lowest global row and sum the raw
+    counts); ``infeasible_shard`` leaves shard 1 (the last with D = 1) no
+    feasible row; ``nothing`` leaves no row feasible anywhere; ``pref``,
+    ``volpin``, ``locked_target``, ``or_group`` and ``rev`` set the task's
+    preferred node, volume pin, the locks and the target flag, an OR group
+    and the revocable bonus. Without a knob each gate is drawn at random."""
+    rng = np.random.RandomState(seed)
+    N = D * NL
+    n = NL if ties else N          # rows drawn; tiled D times with ties
+
+    def grid(rows, lo=0.0, hi=8.0):
+        return (rng.randint(int(lo * 4), int(hi * 4) + 1, (rows, n))
+                / 4.0).astype(F32)
+
+    def flags(p, rows=1):
+        return (rng.rand(rows, n) < p).astype(F32)
+
+    alloc = grid(R, lo=2.0, hi=8.0)
+    alloc[rng.rand(R, n) < 0.05] = 0.0
+    rows = dict(
+        tstat=(rng.rand(P, n) < 0.85).astype(F32),
+        tscore=(rng.randint(0, 3, (P, n)) * 25).astype(F32),
+        nascore=(rng.randint(0, 2, (P, n)) * 10).astype(F32),
+        blocknr=flags(0.1), blockall=flags(0.05),
+        bonus=(flags(0.3) * 100).astype(F32),
+        locked=flags(0.3 if locked_target else 0.05),
+        orfeas=(rng.rand(GR, n) < 0.7).astype(F32),
+        rel=grid(R, hi=2.0), pip=grid(R, hi=1.5), alloc=alloc,
+        cnt=rng.randint(0, 5, (1, n)).astype(F32),
+        maxp=rng.randint(3, 9, (1, n)).astype(F32),
+        gidle0=rng.randint(0, 16, (G, n)).astype(F32),
+        idle=np.minimum(alloc, grid(R, hi=6.0)),
+        pipe=grid(R, hi=0.5),
+        pods=rng.randint(0, 2, (1, n)).astype(F32),
+        gpux=rng.randint(0, 3, (G, n)).astype(F32))
+    if ties:
+        # few distinct rows, so equal scores recur inside and across shards
+        for k, v in rows.items():
+            rows[k] = np.tile(v[:, rng.randint(0, 4, NL)], (1, D))
+    tmpl = int(rng.randint(P))
+    if infeasible_shard:
+        d = 1 if D > 1 else 0
+        rows["tstat"][tmpl, d * NL:(d + 1) * NL] = 0.0
+    if nothing:
+        rows["tstat"][tmpl] = 0.0
+    req = (rng.randint(1, 9, (1, R)) / 4.0).astype(F32)
+    if gpu:
+        req = np.concatenate([req, [[F32(rng.randint(0, 9))]]], 1)
+    grp = int(rng.randint(GR)) if or_group or rng.rand() < 0.3 else -1
+    task = np.array([[
+        int(rng.randint(N)) if pref or rng.rand() < 0.2 else -1,
+        tmpl, grp,
+        int(rng.randint(N)) if volpin or rng.rand() < 0.1 else -1,
+        int(rng.rand() < 0.97),
+        int(rev or rng.rand() < 0.3)]], I32)
+    istgt = np.array([[int(locked_target and rng.rand() < 0.5)]], I32)
+    names = ("tstat", "tscore", "nascore", "blocknr", "blockall", "bonus",
+             "locked", "orfeas", "rel", "pip", "alloc", "cnt", "maxp")
+    args = [req, task, istgt] + [rows[k] for k in names]
+    args += [rows["gidle0"]] if gpu else []
+    args += [rows["idle"], rows["pipe"], rows["pods"]]
+    args += [rows["gpux"]] if gpu else []
+    return [np.ascontiguousarray(a) for a in args]

@@ -44,3 +44,12 @@ def lex_argmin(keys: Sequence[torch.Tensor],
     # first surviving index (argmax takes no bool input)
     idx = torch.argmax(m.to(torch.uint8)).to(torch.int32)
     return idx, mask.any()
+
+
+def tie_count(score: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
+    """i32: how many feasible nodes beyond the winner share the winning
+    score (the reference rolls rand.Intn over that tied set,
+    scheduler_helper.go:227); 0 when no node is feasible."""
+    masked = torch.where(feasible, score, torch.full_like(score, NEG))
+    n = ((masked == masked.max()) & feasible).sum(dtype=torch.int32)
+    return (n - 1).clamp_min(0)
