@@ -88,13 +88,33 @@ Phases, each of which fails the run (exit code 1) when it fails:
    card: ``_synthetic_cluster(1024, 256, 16)`` under
    ``AllocateConfig(binpack_weight=1.0)`` with neutral extras gives
    0bed0b3363cfef13 (4,096 placed, 256 gangs ready), at 4 shards and at 1;
-   the shipped conf on ``_synthetic_cluster(1024, 640, 16)`` gives
-   3ae3ff8ac7b0b9b7 (check C's); and the first of these as a plain cycle
-   on the card (the plain version in place of the kernel) at 4 shards
-   gives the same decisions;
+   and as a plain cycle on the card (the plain version in place of the
+   kernel) at 4 shards gives the same decisions (the shipped conf on
+   4 shards runs in check J, on the wave path);
 19. the candidate kernel's time: CUDA events around launches at check G's
    shapes (1 shard of 10,240 rows) and at 4 shards of 2,560, beside the
-   plain version's and the bound.
+   plain version's and the bound;
+20. the wide candidate search (kernel 5 of the reference) against its plain
+   version, all 8 outputs bitwise: the first 32 launches of check I's cycle,
+   and small built inputs (``ops/dyn_cases.py`` WAVE_CASES) at 1 and 4
+   shards and W = 4, 8 and 16, with GPU cards;
+21. check I, the wavefront walk at the north star: ``Session(
+   _synthetic_cluster(10000, 6250, 16), gang + nodeorder with
+   leastrequested and balancedresource at 1 and every other weight 0,
+   sharding: true, wave_width: 8).run_allocate()`` on the one card (a mesh
+   of one shard): waves of 8 slots, one kernel-5 launch a wave; the counts
+   are set to 0 just before and read just after, kernel 5 must have
+   launched and kernel 4 not; the fingerprint must be the one the fused
+   Session (no sharding, the same conf: kernel 1, W clamped to 1) gives on
+   the same cluster, with 100,000 binds;
+22. check J: check H's configurations on the wave path, on 4 virtual
+   shards of the card: the binpack configuration at W = 4 and W = 16 gives
+   0bed0b3363cfef13, and the shipped conf at (1024, 640, 16) at W = 8 gives
+   3ae3ff8ac7b0b9b7 (check C's; its dynamic keys yield inside waves);
+23. the wide candidate kernel's time: device time per launch in a
+   ``torch.profiler`` trace at check I's shapes (1 shard of 10,240 rows, 8
+   columns) and at 4 shards of 2,560, beside the plain version's and the
+   bound.
 
 The expected fingerprints are the JAX package's scan path's (and, for A,
 B, D and the raw configuration-5 cycle, its oracle's too). Each phase's
@@ -105,6 +125,7 @@ holds the kernels' JSON record, the last line ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -126,6 +147,10 @@ CHECK_E = ((10000, 2500), ("a2267c3d4e340d03", 20000, 2500))
 CHECK_F = ((1024, 320, 1), ("07085317a58495b3", 1961, 268))
 #: check H: cluster size, fingerprint, tasks placed and jobs ready
 CHECK_H = ((1024, 256, 16), ("0bed0b3363cfef13", 4096, 256))
+#: check I's wave width; check J's widths for the binpack configuration and
+#: for the shipped conf
+WAVE_I = 8
+WAVES_J = ((4, 16), 8)
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -185,6 +210,26 @@ def sharded_conf():
     """The north-star conf (gang + binpack) with ``sharding: true``."""
     conf = gang_binpack_conf()
     conf.sharding = True
+    return conf
+
+
+def wave_conf(sharding):
+    """Check I's conf: the bench's wavefront scoring (bench.py:1417-1422:
+    least_allocated 1 + balanced 1, no binpack, which funnels every slot
+    onto one node) as gang + nodeorder with leastrequested.weight and
+    balancedresource.weight 1 and every other nodeorder weight 0;
+    ``wave_width: 8``, and ``sharding: true`` when asked (without it the
+    fused placers take W = 1)."""
+    from volcano_tpu_torch.framework import (PluginOption,
+                                             SchedulerConfiguration, Tier)
+    weights = {"leastrequested.weight": "1", "balancedresource.weight": "1",
+               "mostrequested.weight": "0", "tainttoleration.weight": "0",
+               "nodeaffinity.weight": "0", "podaffinity.weight": "0"}
+    conf = SchedulerConfiguration(actions=["allocate"], tiers=[
+        Tier([PluginOption("gang"),
+              PluginOption("nodeorder", arguments=weights)])])
+    conf.sharding = sharding
+    conf.wave_width = WAVE_I
     return conf
 
 
@@ -753,6 +798,145 @@ def time_shard_kernel(call):
                 bytes=nbytes, ops=ops)
 
 
+class WaveRecorder(ShardRecorder):
+    """Wave placer seam: as ShardRecorder, for the wide candidate search."""
+
+    def __call__(self, cfg, D, C, args):
+        from volcano_tpu_torch.ops import shard_wave as sw
+        if len(self.calls) < self.keep:
+            self.calls.append((cfg, D, C, [a.clone() for a in args]))
+        if self.stop_after is not None and len(self.calls) >= self.stop_after:
+            raise Recorder.Stop()
+        return sw.shard_wave_cuda(cfg, D, C, args)
+
+
+def record_wave_launches(ssn, keep, stop_after=None):
+    """Run the session's wave cycle on the card through a WaveRecorder."""
+    from volcano_tpu_torch.arrays import to_device
+    from volcano_tpu_torch.ops.allocate_scan import make_allocate_cycle
+    cfg, extras = ssn._derived_allocate_inputs()
+    rec = WaveRecorder(keep, stop_after)
+    try:
+        make_allocate_cycle(cfg, mesh=ssn._sharding_mesh(),
+                            wave_placer=rec)(to_device(ssn.snap, "cuda"),
+                                             to_device(extras, "cuda"))
+    except Recorder.Stop:
+        pass
+    return rec.calls
+
+
+def wave_built_calls():
+    """The small built inputs of the wide search's cases
+    (``volcano_tpu_torch/ops/dyn_cases.py`` WAVE_CASES), on the card, with
+    GPU cards."""
+    import torch
+
+    from volcano_tpu_torch.ops.allocate_scan import (AllocateConfig,
+                                                     wave_candidate_depth)
+    from volcano_tpu_torch.ops.dyn_cases import (PLACER_WEIGHTS, WAVE_CASES,
+                                                 make_wave_inputs)
+    cfg = AllocateConfig(enable_gpu=True, **PLACER_WEIGHTS)
+    calls = []
+    for case in sorted(WAVE_CASES):
+        for D in (1, 4):
+            for W in (4, 8, 16):
+                calls.append((cfg, D, wave_candidate_depth(W), [
+                    torch.from_numpy(a).cuda() for a in make_wave_inputs(
+                        D, D=D, W=W, gpu=True, **WAVE_CASES[case])]))
+    return calls
+
+
+def compare_wave_plain(calls):
+    """Max |kernel - plain| over the 4 outputs of every launch; raises
+    unless all are bitwise equal."""
+    import torch
+
+    from volcano_tpu_torch.ops import shard_wave as sw
+    worst = 0.0
+    for cfg, D, C, args in calls:
+        got = sw.shard_wave_cuda(cfg, D, C, args)
+        want = sw.shard_wave_plain_all(cfg, D, C, args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError("wave kernel and plain version differ")
+    return worst
+
+
+def time_wave_kernel(call):
+    """Wide candidate kernel ms per launch (device time in a
+    ``torch.profiler`` trace; CUDA events around the run time the
+    wrapper's host work, ``events_ms``), plain version ms per call, and the
+    least time for the same work on this card: the bytes of
+    ``shard_wave.bound_bytes`` against the float32 operations of W
+    attempts on each row (each with its two views' selection)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from volcano_tpu_torch.ops import shard_wave as sw
+    cfg, D, C, args = call
+    for _ in range(3):
+        sw.shard_wave_cuda(cfg, D, C, args)
+    torch.cuda.synchronize()
+    reps = 200
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            sw.shard_wave_cuda(cfg, D, C, args)
+        end.record()
+        torch.cuda.synchronize()
+    events_ms = start.elapsed_time(end) / reps
+    dev = [(e.time_range.end - e.time_range.start) / 1000
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "shard_wave_kernel" in e.name]
+    # the trace may keep fewer launches than ran (on an H100 it kept 169
+    # to 189 of 200): the device time is the mean over those it kept
+    if not 0 < len(dev) <= reps:
+        raise RuntimeError(f"the trace holds {len(dev)} kernel launches "
+                           f"of {reps}")
+    ms = sum(dev) / len(dev)
+    sw.shard_wave_plain_all(cfg, D, C, args)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_reps = 3
+    for _ in range(plain_reps):
+        sw.shard_wave_plain_all(cfg, D, C, args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000 / plain_reps
+    a = sw.unpack_args(cfg, args)
+    R, N = a.idle.shape
+    W = a.req.shape[1]
+    G = a.gidle0.shape[0] if cfg.enable_gpu else 0
+    templates = len(set(a.task[1].tolist()))
+    groups = len(set(g for g in a.task[2].tolist() if g >= 0)) or 1
+    nbytes = sw.bound_bytes(cfg, N, R, G, W, C, D, templates, groups)
+    ops = W * N * (ops_per_node(cfg, R, G) + 2)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(D=D, NL=N // D, W=W, C=C, ms=ms, traced=len(dev),
+                events_ms=events_ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def wave_counts():
+    from volcano_tpu_torch.ops import shard_placer as sp
+    from volcano_tpu_torch.ops import shard_wave as sw
+    return dict(launches=sw.launches, waves=sw.waves,
+                fast_waves=sw.fast_waves, truncations=sw.truncations,
+                pops=sp.pops, shard_candidates_launches=sp.launches)
+
+
+def zero_wave_counts():
+    from volcano_tpu_torch.ops import shard_wave as sw
+    zero_shard_counts()
+    sw.launches = sw.waves = sw.fast_waves = sw.truncations = 0
+
+
 def shard_counts():
     from volcano_tpu_torch.ops import shard_placer as sp
     return dict(launches=sp.launches, pops=sp.pops)
@@ -810,7 +994,7 @@ def main():
     try:
         t0 = time.perf_counter()
         logs = _build.build(["round_placer", "dyn_placer", "seg_fold",
-                             "shard_candidates"])
+                             "shard_candidates", "shard_wave"])
         log(f"build {time.perf_counter() - t0:.1f}s")
         for name, text in logs.items():
             log(f"--- nvcc {name}\n{text.strip()}")
@@ -1268,19 +1452,9 @@ def main():
             shard_placer=sp.shard_candidates_plain_all)(s_d, e_d)
         p_packed = p_res.packed_decisions().cpu()
         p_ms = (time.perf_counter() - t0) * 1000
-        sub_h = Session(_synthetic_cluster(*SUB), shipped, device="cuda")
-        cfg_c, extras_c = sub_h._derived_allocate_inputs()
-        t0 = time.perf_counter()
-        res = make_sharded_allocate(cfg_c, NodeMesh(("cuda",) * 4),
-                                    sub_h.snap)(sub_h.snap, extras_c)
-        sha_c = fingerprint(res.task_node.cpu().numpy(),
-                            res.task_mode.cpu().numpy())
-        c_ms = (time.perf_counter() - t0) * 1000
         log(json.dumps({"phase": "check_H", "binpack_4_shards": out_h[4],
                         "binpack_1_shard": out_h[1],
-                        "plain_cycle_4_shards_ms": p_ms,
-                        "shipped_conf_4_shards": {
-                            "cycle_ms": c_ms, "fingerprint": sha_c}}))
+                        "plain_cycle_4_shards_ms": p_ms}))
         for D in (4, 1):
             got = (out_h[D]["fingerprint"], out_h[D]["placed"],
                    out_h[D]["jobs_ready"])
@@ -1288,7 +1462,6 @@ def main():
             assert out_h[D]["launches"] > 0, D
         assert torch.equal(packed_h[4], packed_h[1]), "4 shards != 1 shard"
         assert torch.equal(p_packed, packed_h[4]), "H: kernel and plain differ"
-        assert sha_c == CHECK_C, f"H: shipped conf gave {sha_c}"
     except Exception as e:
         fail("18 (check H, make_sharded_allocate on 4 shards)", e)
 
@@ -1310,6 +1483,130 @@ def main():
             "library_ms": None})
     except Exception as e:
         fail("19 (candidate kernel time)", e)
+
+    # ---- 20. the wide candidate search against its plain version -------
+    clock.lap("20 wave_vs_plain")
+    from volcano_tpu_torch.ops import shard_wave as sw
+    try:
+        t0 = time.perf_counter()
+        ssn_i = Session(_synthetic_cluster(*FULL), wave_conf(True),
+                        device="cuda")
+        build_i_s = time.perf_counter() - t0
+        assert ssn_i._sharding_mesh().size == 1, ssn_i._sharding_mesh()
+        i_calls = record_wave_launches(ssn_i, keep=32, stop_after=32)
+        assert len(i_calls) == 32, "check I's cycle made under 32 launches"
+        built_w = wave_built_calls()
+        wave_err = compare_wave_plain(i_calls + built_w)
+        log(json.dumps({"phase": "wave_vs_plain", "launches_compared":
+                        len(i_calls + built_w), "max_abs_err": wave_err}))
+    except Exception as e:
+        fail("20 (wide candidate search against plain version)", e)
+
+    # ---- 21. check I: the wavefront walk at the north star -------------
+    clock.lap("21 check_I")
+    try:
+        cfg_i, _ = ssn_i._derived_allocate_inputs()
+        weights = (cfg_i.binpack_weight, cfg_i.least_allocated_weight,
+                   cfg_i.most_allocated_weight, cfg_i.balanced_weight,
+                   cfg_i.taint_prefer_weight, cfg_i.wave_width)
+        assert weights == (0.0, 1.0, 0.0, 1.0, 0.0, WAVE_I), weights
+        fused = Session(_synthetic_cluster(*FULL), wave_conf(False),
+                        device="cuda")
+        assert fused._sharding_mesh() is None
+        fused.run_allocate()
+        sha_fused = fingerprint(fused.last_allocate.task_node,
+                                fused.last_allocate.task_mode)
+        fused_ms = fused.stats["cycle_ms"]
+        del fused
+        zero_wave_counts()
+        t0 = time.perf_counter()
+        ssn_i.run_allocate()
+        session_i_ms = (time.perf_counter() - t0) * 1000
+        counts_i = wave_counts()
+        res = ssn_i.last_allocate
+        sha = fingerprint(res.task_node, res.task_mode)
+        log(json.dumps({"phase": "check_I", "nodes": FULL[0],
+                        "tasks": FULL[1] * FULL[2], "shards": 1,
+                        "wave_width": WAVE_I,
+                        "cluster_build_s": build_i_s,
+                        "pack_ms": ssn_i.stats["pack_ms"],
+                        "cycle_ms": ssn_i.stats["cycle_ms"],
+                        "apply_ms": ssn_i.stats["apply_ms"],
+                        "run_allocate_ms": session_i_ms,
+                        "binds": len(ssn_i.binds), **counts_i,
+                        "fingerprint": sha,
+                        "fused_session_cycle_ms": fused_ms,
+                        "fused_session_fingerprint": sha_fused}))
+        assert counts_i["launches"] > 0, "check I launched no wave kernel"
+        assert counts_i["launches"] == counts_i["waves"], counts_i
+        assert counts_i["shard_candidates_launches"] == 0, counts_i
+        assert sha == sha_fused, f"fingerprint {sha} != {sha_fused}"
+        assert len(ssn_i.binds) == FULL[1] * FULL[2], len(ssn_i.binds)
+    except Exception as e:
+        fail("21 (check I, the wavefront walk at the north star)", e)
+
+    # ---- 22. check J: check H's configurations on the wave path --------
+    clock.lap("22 check_J")
+    try:
+        h_size, h_want = CHECK_H
+        snap_j, _ = pack(_synthetic_cluster(*h_size))
+        s_d = to_device(snap_j, "cuda")
+        e_d = to_device(AllocateExtras.neutral(snap_j), "cuda")
+        out_j = {}
+        for W in WAVES_J[0]:
+            zero_wave_counts()
+            t0 = time.perf_counter()
+            res = make_sharded_allocate(
+                AllocateConfig(binpack_weight=1.0, wave_width=W),
+                NodeMesh(("cuda",) * 4), s_d)(s_d, e_d)
+            tn, tm = res.task_node.cpu().numpy(), res.task_mode.cpu().numpy()
+            out_j[W] = dict(cycle_ms=(time.perf_counter() - t0) * 1000,
+                            **wave_counts(), placed=int((tm > 0).sum()),
+                            jobs_ready=int(res.job_ready.sum()),
+                            fingerprint=fingerprint(tn, tm))
+        sub_j = Session(_synthetic_cluster(*SUB), shipped, device="cuda")
+        cfg_j, extras_j = sub_j._derived_allocate_inputs()
+        W = WAVES_J[1]
+        zero_wave_counts()
+        t0 = time.perf_counter()
+        res = make_sharded_allocate(dataclasses.replace(cfg_j, wave_width=W),
+                                    NodeMesh(("cuda",) * 4),
+                                    sub_j.snap)(sub_j.snap, extras_j)
+        sha_j = fingerprint(res.task_node.cpu().numpy(),
+                            res.task_mode.cpu().numpy())
+        shipped_j = dict(wave_width=W,
+                         cycle_ms=(time.perf_counter() - t0) * 1000,
+                         **wave_counts(), fingerprint=sha_j)
+        log(json.dumps({"phase": "check_J", **{
+            f"binpack_4_shards_W{W}": v for W, v in out_j.items()},
+            "shipped_conf_4_shards": shipped_j}))
+        for W, o in out_j.items():
+            got = (o["fingerprint"], o["placed"], o["jobs_ready"])
+            assert got == h_want, (W, got)
+            assert o["launches"] > 0 and o["shard_candidates_launches"] == 0
+        assert sha_j == CHECK_C, f"J: shipped conf gave {sha_j}"
+        assert shipped_j["launches"] > 0, shipped_j
+    except Exception as e:
+        fail("22 (check J, the wave path on 4 shards)", e)
+
+    # ---- 23. the wide candidate kernel's time --------------------------
+    clock.lap("23 wave_time")
+    try:
+        t1 = time_wave_kernel(i_calls[0])
+        cfg_w, _, c_w, args_w = i_calls[0]
+        t4 = time_wave_kernel((cfg_w, 4, c_w, args_w))
+        for t in (t1, t4):
+            log(json.dumps({"phase": "wave_time", **t}))
+        kernels.append({
+            "name": "shard_wave", "route": "cuda",
+            "source": "volcano_tpu_torch/csrc/shard_wave.cu",
+            "replaces": "volcano_tpu/ops/pallas_place.py:1266",
+            "launches": counts_i["launches"], "max_abs_err": wave_err,
+            "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+            "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+            "library_ms": None})
+    except Exception as e:
+        fail("23 (wide candidate kernel time)", e)
     clock.lap()
 
     log(json.dumps({"phase_seconds": clock.seconds}))

@@ -1,7 +1,7 @@
 """Where the time of one volcano_tpu_torch allocate cycle goes, on the card.
 
     python3 scripts/torch_cycle_profile.py
-        [--cell north_star | fair_share | affinity | sharded]
+        [--cell north_star | fair_share | affinity | sharded | wave]
         [--nodes 10000 --jobs 6250 --tasks-per-job 16] [--window N]
         [--cycles 2] [--out PATH]
 
@@ -18,7 +18,13 @@ with the pod-affinity step in the round placer. The ``sharded`` cell is
 with ``sharding: true``, the sharded scan path (one pop and one attempt at
 a time, each attempt one launch of the shard-local candidate kernel); its
 numbers are per pop and per attempt, and ``--window`` counts attempts. The
-script packs and
+``wave`` cell is ``chip_smoke.py``'s check I: the north-star cluster under
+``chip_smoke.wave_conf`` (gang + nodeorder, least-requested and balanced
+at 1, no binpack) with ``sharding: true`` and ``wave_width: 8``, the
+wavefront walk (waves of 8 slots, each one launch of the wide candidate
+kernel, the combine, the batched-commit check, then the batched commit or
+the in-order walk); its numbers are per pop and per wave, and
+``--window`` counts waves. The script packs and
 uploads the snapshot once, runs the allocate cycle once to build and warm
 the kernels, then:
 
@@ -32,12 +38,15 @@ the kernels, then:
    host time of the cycle's steps (``host_ms_by_step``: each of
    ``namespace_shares``, ``drf_job_shares``, ``hdrf_level_keys``,
    ``lex_argmin`` and ``gather_slot_tables`` in ``ops/allocate_scan.py``,
-   the shard placer's ``combine``, and the placer calls, wrapped in a
-   profiler span; the rest of a round is the loop's own tensor work) and
+   the shard placer's ``combine``, the wave walk's steps (``wave_sweep``,
+   ``wave_combine``, ``wave_fast_ok`` with its readback,
+   ``wave_commit_fast``, ``wave_commit_slow``) and the placer calls,
+   wrapped in a profiler span; the rest of a round is the loop's own
+   tensor work) and
    the calls that make the host wait for the device or copy between the
    two (``waits_by_name``: stream and device synchronisations, memory
-   copies), both per placer launch, and in the sharded cell per pop and
-   per attempt.
+   copies), both per placer launch, in the sharded cell per pop and per
+   attempt, and in the wave cell per pop and per wave.
 
 Needs a CUDA card; prints one JSON object, and writes it to ``--out`` when
 given.
@@ -71,7 +80,7 @@ def busy_us(intervals):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cell", choices=("north_star", "fair_share",
-                                       "affinity", "sharded"),
+                                       "affinity", "sharded", "wave"),
                     default="north_star")
     ap.add_argument("--window", type=int, default=0,
                     help="profile only the first N placer launches")
@@ -108,6 +117,10 @@ def main():
         from volcano_tpu_torch.synthetic import affinity_scenario
         ci = affinity_scenario(*chip_smoke.CHECK_E[0])
         conf = chip_smoke.affinity_conf()
+    elif args.cell == "wave":
+        import chip_smoke
+        conf = chip_smoke.wave_conf(True)
+        ci = _synthetic_cluster(args.nodes, args.jobs, args.tasks_per_job)
     else:
         conf = SchedulerConfiguration(actions=["allocate"], tiers=[
             Tier([PluginOption("gang"), PluginOption("binpack")])])
@@ -121,6 +134,10 @@ def main():
         mesh = dict(mesh=ssn._sharding_mesh())
     except ImportError:                   # a tree from before the kernel
         sp, mesh = None, {}
+    try:
+        from volcano_tpu_torch.ops import shard_wave as sw
+    except ImportError:                   # a tree from before the kernel
+        sw = None
     cycle = make_allocate_cycle(cfg, **mesh)
 
     class Stop(Exception):
@@ -142,6 +159,8 @@ def main():
     all_seams = dict(placer=rp.round_place, dyn_placer=dp.dyn_place)
     if sp is not None:
         all_seams["shard_placer"] = sp.shard_candidates
+    if sw is not None:
+        all_seams["wave_placer"] = sw.shard_wave
     try:                                  # build + warm
         (windowed(args.window, [], **all_seams) if args.window
          else cycle)(snap_d, extras_d).packed_decisions().cpu()
@@ -159,6 +178,8 @@ def main():
             sf.launches = 0
         if sp is not None:
             sp.launches = sp.pops = 0
+        if sw is not None:
+            sw.launches = sw.waves = sw.fast_waves = sw.truncations = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cycle(snap_d, extras_d).packed_decisions().cpu()
@@ -168,7 +189,11 @@ def main():
                 "pod_affinity": (getattr(rp, "aff_launches", 0)
                                  + getattr(dp, "aff_launches", 0)),
                 "shard_candidates": sp.launches if sp is not None else None,
-                "shard_pops": sp.pops if sp is not None else None}
+                "shard_pops": sp.pops if sp is not None else None,
+                "shard_wave": sw.launches if sw is not None else None,
+                "waves": sw.waves if sw is not None else None,
+                "fast_waves": sw.fast_waves if sw is not None else None,
+                "truncations": sw.truncations if sw is not None else None}
 
     seen = []
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -183,7 +208,7 @@ def main():
     if args.window:
         seams = {k: window(v, seen, args.window) for k, v in seams.items()}
     names = dict(placer="round_placer", dyn_placer="dyn_placer",
-                 shard_placer="shard_placer")
+                 shard_placer="shard_placer", wave_placer="wave_placer")
     profiled = make_allocate_cycle(
         cfg, **mesh, **{k: span(names[k], v) for k, v in seams.items()})
     steps = ["namespace_shares", "drf_job_shares", "hdrf_level_keys",
@@ -195,6 +220,11 @@ def main():
         sp.combine = span("combine", sp.combine)
         sp.pops = 0
         steps.append("combine")
+    if sw is not None and hasattr(tas, "_step"):
+        tas._step = lambda name: record_function("step:" + name)
+        sw.waves = 0
+        steps += ["wave_sweep", "wave_combine", "wave_fast_ok",
+                  "wave_commit_fast", "wave_commit_slow"]
     steps += [names[k] for k in seams]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -249,7 +279,18 @@ def main():
         "waits_by_name": {k: {"calls": v[0], "ms": v[1]}
                           for k, v in waits.items()},
     }
-    if args.cell == "sharded":
+    if args.cell == "wave":
+        # per pop and per wave (one kernel-5 launch a wave)
+        waves = len(seen) if args.window else launches["shard_wave"]
+        denoms = {"per_pop": sp.pops, "per_wave": waves}
+        out["profiled_pops"] = sp.pops
+        out["profiled_waves"] = sw.waves
+        wave_dev = by_name.get(next((k for k in by_name
+                                     if "shard_wave_kernel" in k), ""))
+        if wave_dev:
+            out["wave_kernel_device_ms_per_launch"] = (wave_dev[1]
+                                                       / wave_dev[0])
+    elif args.cell == "sharded":
         # per pop and per attempt (one kernel-4 launch an attempt)
         attempts = len(seen) if args.window else launches["shard_candidates"]
         denoms = {"per_pop": sp.pops, "per_attempt": attempts}

@@ -132,7 +132,7 @@ def test_cycle_goes_through_the_given_placer():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(enable_host_ports=True), dict(telemetry=True), dict(wave_width=4),
+    dict(enable_host_ports=True), dict(telemetry=True),
     dict(enable_host_ports=True, drf_job_order=True, batch_rounds=32),
     dict(telemetry=True, drf_ns_order=True, batch_jobs=8, batch_rounds=32)])
 def test_unported_configs_name_their_roadmap_item(overrides):
@@ -142,6 +142,29 @@ def test_unported_configs_name_their_roadmap_item(overrides):
     if cfg.enable_host_ports:
         with pytest.raises(NotImplementedError, match="item 4b"):
             tas.make_allocate_cycle(cfg)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(batch_jobs=8), dict(drf_job_order=True, batch_jobs=8,
+                             batch_rounds=32)])
+def test_wave_width_on_the_fused_placers_is_sequential(overrides):
+    """Without a mesh the fused placers take whole job sections and ignore
+    ``wave_width``, as the reference's do (its allocate_scan.py:623-627,
+    ``test_pallas_fused_clamps_to_sequential``): W = 4 gives the W = 1
+    decisions and the JAX interpret cycle's at W = 4, and raises
+    nothing."""
+    ci = random_cluster(japi, 3, gpus=True)
+    snap, _ = pack(ci)
+    extras = AllocateExtras.neutral(snap)
+    got = port_packed(snap, extras, BINPACK_TAINT, wave_width=4, **overrides)
+    np.testing.assert_array_equal(
+        got, port_packed(snap, extras, BINPACK_TAINT, **overrides))
+    if not overrides.get("batch_rounds"):
+        want = jax.jit(jax_cycle(dataclasses.replace(
+            BINPACK_TAINT, use_pallas="interpret", wave_width=4,
+            **overrides)))(snap, extras)
+        np.testing.assert_array_equal(got,
+                                      np.asarray(want.packed_decisions()))
 
 
 @pytest.mark.parametrize("overrides", [

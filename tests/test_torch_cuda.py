@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 round placer (with and without its pod-affinity step), the pod-affinity
-step in the dynamic-key placer, the segmented sum and the shard-local
-candidate search; and the sharded cycle's waits on the card.
+step in the dynamic-key placer, the segmented sum, the shard-local
+candidate search and its wide (wavefront) form; and the sharded cycle's
+waits on the card, with and without waves.
 
 Imports nothing of JAX, so it runs on a machine with a card and no JAX:
 
@@ -9,6 +10,8 @@ Imports nothing of JAX, so it runs on a machine with a card and no JAX:
 
 Where there is no card every test skips (decided inside the test).
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -18,8 +21,12 @@ from torch_fixtures import (AFF_CASES, CASES, PLACER_WEIGHTS,
 from volcano_tpu_torch.ops import dyn_placer as dp
 from volcano_tpu_torch.ops import round_placer as rp
 from volcano_tpu_torch.ops import shard_placer as sp
-from volcano_tpu_torch.ops.dyn_cases import SHARD_CASES, make_shard_inputs
-from volcano_tpu_torch.ops.allocate_scan import AllocateConfig
+from volcano_tpu_torch.ops import shard_wave as sw
+from volcano_tpu_torch.ops.dyn_cases import (SHARD_CASES, WAVE_CASES,
+                                             make_shard_inputs,
+                                             make_wave_inputs)
+from volcano_tpu_torch.ops.allocate_scan import (AllocateConfig,
+                                                 wave_candidate_depth)
 
 
 def need_card():
@@ -274,6 +281,94 @@ def test_cycle_copies_nothing_to_the_card_and_waits_once_a_round(mesh_path):
     assert rounds > 4
     assert htod == []
     assert rounds <= len(syncs) <= rounds + 8
+
+
+# ---- the wide shard-local candidate search (kernel 5) -----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gpu", [False, True])
+@pytest.mark.parametrize("W", [1, 4, 8, 16])
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(WAVE_CASES))
+def test_wave_kernel_matches_plain_bitwise(case, D, W, gpu):
+    need_card()
+    cfg = AllocateConfig(enable_gpu=gpu, **PLACER_WEIGHTS)
+    C = wave_candidate_depth(W)
+    t = [torch.from_numpy(a).cuda() for a in
+         make_wave_inputs(0, D=D, W=W, gpu=gpu, **WAVE_CASES[case])]
+    want = sw.shard_wave_plain_all(cfg, D, C, t)
+    before = sw.launches
+    got = sw.shard_wave(cfg, D, C, t)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1
+    assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_wave_kernel_at_full_width():
+    """One shard of 10,240 rows and four of 2,560 (the north star's
+    shapes), 8 columns: more rows than threads in a block."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=False, least_allocated_weight=1.0,
+                         balanced_weight=1.0)
+    for D, NL in ((1, 10240), (4, 2560)):
+        t = [torch.from_numpy(a).cuda() for a in
+             make_wave_inputs(3, D=D, W=8, NL=NL, ties=True)]
+        assert_same(sw.shard_wave(cfg, D, 8, t),
+                    sw.shard_wave_plain_all(cfg, D, 8, t))
+
+
+@pytest.mark.cuda
+def test_wave_kernel_rejects_wrong_layout():
+    need_card()
+    cfg = AllocateConfig(enable_gpu=False, **PLACER_WEIGHTS)
+    t = [torch.from_numpy(a).cuda() for a in make_wave_inputs(0, D=2, W=4)]
+    t[-3] = t[-3].T.contiguous().T          # idle, transposed layout
+    with pytest.raises(ValueError, match="contiguous"):
+        sw.shard_wave_cuda(cfg, 2, 4, t)
+    t = [torch.from_numpy(a).cuda() for a in make_wave_inputs(0, D=2, W=4)]
+    with pytest.raises(ValueError, match="depth"):
+        sw.shard_wave_cuda(cfg, 2, 9, t)
+
+
+@pytest.mark.cuda
+def test_wave_cycle_on_the_card():
+    """The wave cycle on 4 virtual shards of the card: the kernel cycle and
+    the plain cycle give the W = 1 cycle's decisions, with one kernel-5
+    launch a wave and no kernel-4 launch; no host-to-device copy, and the
+    host waits for the card once a pop, once a batched wave and once a
+    slot of the in-order walk, at most W a wave."""
+    need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from volcano_tpu_torch.arrays import pack, to_device
+    from volcano_tpu_torch.ops.allocate_scan import (AllocateExtras,
+                                                     make_allocate_cycle)
+    from volcano_tpu_torch.parallel import NodeMesh
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    snap, _ = pack(_synthetic_cluster(512, 48, 8))
+    s = to_device(snap, "cuda")
+    e = to_device(AllocateExtras.neutral(snap), "cuda")
+    cfg = AllocateConfig(binpack_weight=0.0, enable_gpu=False)
+    mesh = NodeMesh(("cuda",) * 4)
+    seq = make_allocate_cycle(cfg, mesh=mesh)(s, e).packed_decisions().cpu()
+    wide = dataclasses.replace(cfg, wave_width=8)
+    cycle = make_allocate_cycle(wide, mesh=mesh)
+    sw.launches = sw.waves = sw.fast_waves = sp.launches = sp.pops = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = cycle(s, e).packed_decisions().cpu()
+    assert torch.equal(got, seq)
+    assert sw.launches == sw.waves > 0 and sp.launches == 0
+    htod = [ev for ev in prof.events() if "HtoD" in ev.name]
+    syncs = [ev for ev in prof.events()
+             if ev.name == "cudaStreamSynchronize"]
+    low = sp.pops + sw.waves
+    assert htod == []
+    assert low <= len(syncs) <= low + (sw.waves - sw.fast_waves) * 7 + 8
+    plain = make_allocate_cycle(wide, mesh=mesh,
+                                wave_placer=sw.shard_wave_plain_all)
+    assert torch.equal(plain(s, e).packed_decisions().cpu(), seq)
 
 
 @pytest.mark.cuda

@@ -169,9 +169,10 @@ def test_hierarchy_matches_jax():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports (``parallel/`` and
-    ``ops/shard_placer.py`` among them), and a session runs, with ``jax``
-    and ``volcano_tpu`` blocked; with ``sharding: true`` too."""
+    """Every module of the port imports (``parallel/``,
+    ``ops/shard_placer.py`` and ``ops/shard_wave.py`` among them), and a
+    session runs, with ``jax`` and ``volcano_tpu`` blocked; with
+    ``sharding: true`` too, and with ``wave_width: 8`` on top."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'volcano_tpu'):\n"
@@ -195,8 +196,16 @@ def test_port_imports_without_jax():
         "assert sharded._sharding_mesh().size == 1\n"
         "assert [b.node_name for b in sharded.binds] == "
         "[b.node_name for b in ssn.binds]\n"
+        "conf.wave_width = 8\n"
+        "from volcano_tpu_torch.ops import shard_wave\n"
+        "wave = Session(_synthetic_cluster(16, 8, 4), conf, device='cpu')\n"
+        "wave.run_allocate()\n"
+        "assert shard_wave.waves > 0\n"
+        "assert [b.node_name for b in wave.binds] == "
+        "[b.node_name for b in ssn.binds]\n"
         "for m in ('volcano_tpu_torch.parallel.sharding',\n"
-        "          'volcano_tpu_torch.ops.shard_placer'):\n"
+        "          'volcano_tpu_torch.ops.shard_placer',\n"
+        "          'volcano_tpu_torch.ops.shard_wave'):\n"
         "    assert m in sys.modules, m\n"
         "assert not any(k.split('.')[0] in ('jax', 'volcano_tpu')\n"
         "               and v is not None for k, v in sys.modules.items())\n"

@@ -24,13 +24,11 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 from volcano_tpu.ops.allocate_scan import AllocateConfig as JaxConfig
-from volcano_tpu.ops.pallas_place import _dyn_score as jax_dyn_score
 from volcano_tpu.ops.pallas_place import make_shard_candidate_placer
 from volcano_tpu.ops.select import tie_count as jax_tie_count
 
-from torch_fixtures import port_cfg
+from torch_fixtures import port_cfg, source_order_score
 from volcano_tpu_torch.ops import select as tsel
 from volcano_tpu_torch.ops import shard_placer as sp
 from volcano_tpu_torch.ops.dyn_cases import (PLACER_WEIGHTS, SHARD_CASES,
@@ -55,24 +53,6 @@ FAMILIES = {
 def jax_placer(cfg, NL, R, G, GR):
     return jax.jit(make_shard_candidate_placer(cfg, NL, R, G, GR,
                                                interpret=True))
-
-
-def source_order_score(jcfg, a: sp.ShardArgs):
-    """The reference kernel's score row [N] in its source order: its own
-    ``_dyn_score`` run eagerly, one operation at a time, then the kernel's
-    float32 adds (pallas_place.py:1202-1207) in numpy."""
-    R, N = a.idle.shape
-    pref, tmpl, _, _, _, rev = a.task[0].tolist()
-    f32 = np.float32
-    score = np.asarray(jax_dyn_score(jcfg, jnp.asarray(a.idle.numpy()),
-                                     jnp.asarray(a.alloc.numpy()),
-                                     jnp.asarray(a.req[0, :R, None].numpy())))
-    score = score + a.tscore[tmpl:tmpl + 1].numpy()
-    score = score + (a.nascore[tmpl:tmpl + 1].numpy()
-                     + (a.bonus.numpy() if rev else f32(0)))
-    score = score + np.where((pref >= 0) & (np.arange(N) == pref), f32(100),
-                             f32(0))
-    return score[0]
 
 
 def compare(seed, D, gpu, weights, **knobs):

@@ -18,6 +18,7 @@ hdrf confs are in ``tests/test_torch_sharded_confs.py``.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from volcano_tpu_torch.ops import allocate_scan as tas
 from volcano_tpu_torch.ops import dyn_placer as dp
 from volcano_tpu_torch.ops import round_placer as rp
 from volcano_tpu_torch.ops import shard_placer as sp
+from volcano_tpu_torch.ops import shard_wave as sw
 from volcano_tpu_torch.parallel import (NodeMesh, make_sharded_allocate,
                                         mesh_for_nodes, scheduler_mesh)
 
@@ -185,10 +187,128 @@ def test_cycle_launches_one_candidate_search_an_attempt():
     assert len(calls) == sp.pops * M
 
 
+# ---- the wavefront section walk (wave_width > 1 under a mesh) ------------
+
+#: random_cluster cases of the wave tests: GPU cards, taints, every score
+#: family with pipelining off, and no gang (test_random_clusters_match_scan's)
+WAVE_CASES = {
+    "gpus": (3, dict(gpus=True), AllocateConfig(binpack_weight=0.7)),
+    "gpus_taints": (5, dict(n_nodes=8, n_jobs=9, gpus=True, taints=True),
+                    AllocateConfig(binpack_weight=0.7,
+                                   taint_prefer_weight=1.0)),
+    "families_no_pipelining": (7, dict(taints=True), AllocateConfig(
+        binpack_weight=1.0, least_allocated_weight=1.0,
+        most_allocated_weight=0.5, balanced_weight=1.0,
+        enable_pipelining=False)),
+    "no_gang": (2, {}, AllocateConfig(enable_gang=False)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def wave_case(name):
+    seed, kw, cfg = WAVE_CASES[name]
+    snap, _ = pack(random_cluster(japi, seed, **kw))
+    return cfg, snap, AllocateExtras.neutral(snap)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_wave_scan(name, W):
+    """The JAX scan path at wave width W (no mesh, no kernel)."""
+    cfg, snap, extras = wave_case(name)
+    return np.asarray(jax.jit(jax_cycle(dataclasses.replace(
+        cfg, use_pallas=False, wave_width=W)))(snap, extras)
+        .packed_decisions())
+
+
+def port_wave(name, D, W):
+    cfg, snap, extras = wave_case(name)
+    s, e = port_inputs(snap, extras)
+    sw.waves = sw.fast_waves = sw.truncations = 0
+    return tas.make_allocate_cycle(port_cfg(cfg, wave_width=W),
+                                   mesh=NodeMesh((CPU,) * D))(
+        s, e).packed_decisions().numpy()
+
+
+@pytest.mark.filterwarnings(SHARD_MAP_WARNING)
+def test_wave_cycle_matches_jax_sharded_wave_cycle():
+    """D = 2, W = 4: the port's wave cycle equals the JAX sharded wave cycle
+    (kernel 5 in interpret mode under shard_map on 2 virtual devices), the
+    JAX scan path at W = 4, and the port's W = 1 cycle."""
+    need_jax_devices(2)
+    from volcano_tpu.parallel.sharding import make_sharded_allocate as jsa
+    from volcano_tpu.parallel.sharding import scheduler_mesh as jmesh
+    cfg, snap, extras = wave_case("gpus_taints")
+    got = port_wave("gpus_taints", 2, 4)
+    assert sw.waves > 0
+    fn = jsa(dataclasses.replace(cfg, use_pallas="interpret", wave_width=4),
+             jmesh(2), snap)
+    np.testing.assert_array_equal(
+        got, np.asarray(fn(snap, extras).packed_decisions()))
+    np.testing.assert_array_equal(got, jax_wave_scan("gpus_taints", 4))
+    np.testing.assert_array_equal(got, port_wave("gpus_taints", 2, 1))
+
+
+@pytest.mark.parametrize("W", [4, 8, 16])
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("name", sorted(WAVE_CASES))
+def test_wave_random_clusters_match_scan(name, D, W):
+    """GPU cards, taints, every score family, no pipelining and no gang: the
+    port's wave cycle at D shards and width W equals the JAX scan path at
+    W = 4 (whose decisions are its W = 1 decisions at every width) and the
+    port's W = 1 cycle."""
+    got = port_wave(name, D, W)
+    assert sw.waves > 0
+    np.testing.assert_array_equal(got, jax_wave_scan(name, 4))
+    np.testing.assert_array_equal(got, port_wave(name, D, 1))
+
+
+def test_cycle_launches_one_wave_search_a_wave():
+    """The wave placer seam: one call a wave, with the mesh's shard count
+    and the depth C = min(W, 8), and the one-attempt search never."""
+    cfg, snap, extras = sharded_inputs("gang_binpack_raw")
+    s, e = port_inputs(snap, extras)
+    calls, attempts = [], []
+
+    def watch(cfg, D, C, args):
+        calls.append((D, C, args[0].shape[1]))
+        return sw.shard_wave(cfg, D, C, args)
+
+    def attempt(cfg, D, args):
+        attempts.append(D)
+        return sp.shard_candidates(cfg, D, args)
+    sw.waves = sw.fast_waves = 0
+    sp.pops = 0
+    res = tas.make_allocate_cycle(
+        port_cfg(cfg, wave_width=16), mesh=NodeMesh((CPU,) * 4),
+        shard_placer=attempt, wave_placer=watch)(s, e)
+    assert set(calls) == {(4, 8, 16)} and attempts == []
+    assert len(calls) == sw.waves >= sp.pops == 32
+    np.testing.assert_array_equal(res.packed_decisions().numpy(),
+                                  jax_scan_packed("gang_binpack_raw"))
+
+
+@pytest.mark.filterwarnings(SHARD_MAP_WARNING)
+@pytest.mark.parametrize("conf,seed,kw", [
+    ("gang_binpack", 3, dict(gpus=True)),
+    ("shipped", 5, dict(n_nodes=8, n_jobs=9, gpus=True, taints=True))])
+def test_session_wave_matches_jax_session(conf, seed, kw):
+    """``sharding: true`` and ``wave_width: 8`` in the conf: the port's
+    Session runs the wave walk and gives the JAX Session's outcome."""
+    need_jax_devices(2)
+    text = ("sharding: true\nwave_width: 8\n"
+            + {"gang_binpack": GANG_BINPACK,
+               "shipped": shipped_conf_text()}[conf])
+    sw.waves = 0
+    want, got, ssn = session_pair(
+        lambda api: random_cluster(api, seed, **kw), text)
+    assert got == want and got[0]
+    assert ssn._derived_allocate_inputs()[0].wave_width == 8
+    assert sw.waves > 0
+
+
 @pytest.mark.parametrize("what,item", [
     ("two_devices", "item 6c"),
     ("pod_affinity", "item 6d"),
-    ("wave_width", "item 6b"),
     ("host_ports", "item 4b"),
     ("telemetry", "item 7"),
 ])
@@ -202,7 +322,6 @@ def test_unported_mesh_configs_name_their_roadmap_item(what, item):
     else:
         pcfg = dataclasses.replace(pcfg, **{
             "pod_affinity": dict(enable_pod_affinity=True),
-            "wave_width": dict(wave_width=4),
             "host_ports": dict(enable_host_ports=True),
             "telemetry": dict(telemetry=True)}[what])
     with pytest.raises(NotImplementedError, match=item):
@@ -242,12 +361,13 @@ class HostCopies(torch.overrides.TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("path", ["static_keys", "dynamic_keys", "sharded"])
+@pytest.mark.parametrize("path", ["static_keys", "dynamic_keys", "sharded",
+                                  "sharded_wave"])
 def test_rounds_copy_nothing_from_the_host(path):
     """A round of the static-key and the dynamic-key cycle, and a pop of the
-    sharded cycle, make no host-to-device copy (each would make the host
-    wait for the card; the static-key round made one, ``job_popped[jdrop]
-    = True``, before it wrote a tensor)."""
+    sharded cycle (one attempt a slot, or waves of 4), make no host-to-device
+    copy (each would make the host wait for the card; the static-key round
+    made one, ``job_popped[jdrop] = True``, before it wrote a tensor)."""
     name = "shipped" if path == "dynamic_keys" else "gang_binpack_raw"
     cfg, snap, extras = sharded_inputs(name)
     s, e = port_inputs(snap, extras)
@@ -267,10 +387,13 @@ def test_rounds_copy_nothing_from_the_host(path):
     pcfg = port_cfg(cfg)
     if path == "static_keys":
         pcfg = dataclasses.replace(pcfg, batch_jobs=8)
+    if path == "sharded_wave":
+        pcfg = dataclasses.replace(pcfg, wave_width=4)
     seams = dict(placer=first(rp.round_place),
                  dyn_placer=first(dp.dyn_place),
-                 shard_placer=first(sp.shard_candidates))
-    mesh = NodeMesh((CPU,) * 2) if path == "sharded" else None
+                 shard_placer=first(sp.shard_candidates),
+                 wave_placer=first(sw.shard_wave))
+    mesh = NodeMesh((CPU,) * 2) if path.startswith("sharded") else None
     with mode:
         tas.make_allocate_cycle(pcfg, mesh=mesh, **seams)(s, e)
     assert len(seen) > 1

@@ -51,6 +51,30 @@ def fingerprint(task_node, task_mode) -> str:
                           + np.asarray(task_mode).tobytes()).hexdigest()[:16]
 
 
+def source_order_score(jcfg, a):
+    """The reference shard kernels' score row [N] in its source order, for
+    the task of ``a`` (``shard_placer.ShardArgs`` of torch tensors: its
+    ``req`` [1, R (+1)] and ``task`` [1, 6] rows): the reference's own
+    ``_dyn_score`` run eagerly, one operation at a time, then the kernels'
+    float32 adds (pallas_place.py:1202-1207) in numpy. XLA's CPU backend,
+    which runs the interpret kernels, rewrites this arithmetic (ROADMAP
+    section 3 (f)); the port keeps the source order."""
+    import jax.numpy as jnp
+    from volcano_tpu.ops.pallas_place import _dyn_score as jax_dyn_score
+    R, N = a.idle.shape
+    pref, tmpl, _, _, _, rev = a.task[0].tolist()
+    f32 = np.float32
+    score = np.asarray(jax_dyn_score(jcfg, jnp.asarray(a.idle.numpy()),
+                                     jnp.asarray(a.alloc.numpy()),
+                                     jnp.asarray(a.req[0, :R, None].numpy())))
+    score = score + a.tscore[tmpl:tmpl + 1].numpy()
+    score = score + (a.nascore[tmpl:tmpl + 1].numpy()
+                     + (a.bonus.numpy() if rev else f32(0)))
+    score = score + np.where((pref >= 0) & (np.arange(N) == pref), f32(100),
+                             f32(0))
+    return score[0]
+
+
 def oracle_packed(out) -> np.ndarray:
     """allocate_cpu's result dict in the packed_decisions layout."""
     return np.concatenate([

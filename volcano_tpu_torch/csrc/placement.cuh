@@ -5,7 +5,9 @@
 // score -> lowest-index argmax -> commit) and `_dyn_score`, used by
 // round_placer.cu (`_batch_kernel`) and dyn_placer.cu (`_dyn_kernel`), and
 // of its pod-affinity extension (`_read_aff_env`, `_aff_eval`,
-// `_aff_commit`, pallas_place.py:186-331).
+// `_aff_commit`, pallas_place.py:186-331). At the end, the row evaluation
+// of the shard-local kernels (`shard_row`), which shard_candidates.cu
+// (`_shard_cand_kernel`) and shard_wave.cu (`_shard_wave_kernel`) share.
 //
 // - The node-axis state (idle, pipe [R, N], pods [1, N], GPU cards [G, N])
 //   lives in global memory (L2 at the sizes the cycle runs).
@@ -515,6 +517,112 @@ __device__ Pick block_pick(const NodeEnv& e, const Task& t, bool is_tgt,
   pk.node_now = ps.pick_i[0];
   pk.node_fut = ps.pick_i[1];
   return pk;
+}
+
+// ---- the shard-local kernels (shard_candidates.cu, shard_wave.cu) --------
+
+// One task of a shard-local attempt, read from device memory: element k of
+// the request column `req` and of the task column `task` (pref, tmpl, grp,
+// voln, volok, rev: shard_placer.TASK_FIELDS) lies at k * stride.
+struct ShardTask {
+  float rr[MAX_R];
+  float gr, grm;  // the GPU request, and it less EPS_FIT
+  int pref, grp, voln;
+  bool volok, rev, is_tgt;
+  const float* trow;   // the task's template row of tstat
+  const float* tsrow;  // ... of tscore
+  const float* narow;  // ... of nascore
+  const float* orrow;  // its OR group's row of orfeas (row 0 without one)
+};
+
+__device__ __forceinline__ ShardTask load_shard_task(const NodeEnv& e,
+                                                     const float* req,
+                                                     const int* task,
+                                                     int stride, bool is_tgt) {
+  const float EPS_FIT = static_cast<float>(1e-5);
+  const int N = e.N;
+  ShardTask t;
+  for (int r = 0; r < e.R; ++r) t.rr[r] = req[r * stride];
+  t.gr = e.G > 0 ? req[e.R * stride] : 0.0f;
+  t.grm = t.gr - EPS_FIT;
+  t.pref = task[0];
+  const int tmpl = task[stride];
+  t.grp = task[2 * stride];
+  t.voln = task[3 * stride];
+  t.volok = task[4 * stride] > 0;
+  t.rev = task[5 * stride] > 0;
+  t.is_tgt = is_tgt;
+  t.trow = e.tstat + static_cast<size_t>(tmpl) * N;
+  t.tsrow = e.tscore + static_cast<size_t>(tmpl) * N;
+  t.narow = e.nascore + static_cast<size_t>(tmpl) * N;
+  t.orrow = e.orfeas + static_cast<size_t>(t.grp > 0 ? t.grp : 0) * N;
+  return t;
+}
+
+struct RowEval {
+  bool now, fut;  // feasible on idle / on future idle
+  float score;
+};
+
+// Row i for task t: the column arithmetic of _shard_cand_kernel and
+// _shard_wave_kernel before their picks (shard_placer.row_eval), in the
+// reference's order. The future view uses the scan association
+// ((idle + releasing) - pipelined) - pipe_extra.
+__device__ __forceinline__ RowEval shard_row(const NodeEnv& e,
+                                             const float* rel,
+                                             const float* pip,
+                                             const ShardTask& t, int i) {
+  const float EPS_FIT = static_cast<float>(1e-5);
+  const int N = e.N;
+  // static feasibility: the node_ok conjunction of the scan branch
+  bool sfeas = t.trow[i] > 0.0f;
+  sfeas = sfeas && !(e.blocknr[i] > 0.0f && !t.rev) && !(e.blockall[i] > 0.0f);
+  sfeas = sfeas && (t.orrow[i] > 0.0f || t.grp < 0);
+  sfeas = sfeas && t.volok && (t.voln < 0 || i == t.voln);
+  sfeas = sfeas && (!(e.locked[i] > 0.0f) || t.is_tgt);
+  bool fit_now = true, fit_fut = true;
+  for (int r = 0; r < e.R; ++r) {
+    const size_t k = static_cast<size_t>(r) * N + i;
+    const float idle = e.idle[k];
+    const float fut = fmaxf(((idle + rel[k]) - pip[k]) - e.pipe[k], 0.0f);
+    fit_now = fit_now && t.rr[r] <= idle + EPS_FIT;
+    fit_fut = fit_fut && t.rr[r] <= fut + EPS_FIT;
+  }
+  bool shared = sfeas && (e.cnt[i] + e.pods[i]) < e.maxp[i];
+  if (e.G > 0) {
+    bool ok = t.gr <= 0.0f;
+    for (int g = 0; g < e.G; ++g) {
+      const size_t k = static_cast<size_t>(g) * N + i;
+      ok = ok || (e.gidle0[k] - e.gpux[k]) >= t.grm;
+    }
+    shared = shared && ok;
+  }
+  // the reference's float32 addition order
+  float score = dyn_score(e, i, t.rr);
+  score = score + t.tsrow[i];
+  score = score + (t.narow[i] + (t.rev ? e.bonus[i] : 0.0f));
+  score = score + ((t.pref >= 0 && i == t.pref) ? 100.0f : 0.0f);
+  return {shared && fit_now, shared && fit_fut, score};
+}
+
+// a view's running candidate: the best masked score, the lowest global row
+// at it, and the feasible rows at it
+struct Cand {
+  float s;
+  int i;
+  int n;
+};
+
+// a higher score wins; equal scores keep the lower row and add their counts
+__device__ __forceinline__ void merge(Cand& a, float s, int i, int n) {
+  if (s > a.s) {
+    a.s = s;
+    a.i = i;
+    a.n = n;
+  } else if (s == a.s) {
+    a.i = i < a.i ? i : a.i;
+    a.n += n;
+  }
 }
 
 // the saved node columns of one gang section: node id + idle, pipe [R] +

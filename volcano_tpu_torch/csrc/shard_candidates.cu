@@ -27,11 +27,12 @@
 // - The task's scalars (request, GPU request, template, OR group, volume
 //   pin, preferred node, revocable and target flags) are read from device
 //   memory: the host never has to know them, so an attempt never waits.
-// - Scoring is placement.cuh's dyn_score; the future view uses the scan
-//   association ((idle + releasing) - pipelined) - pipe_extra, not the
-//   fused placers' precomputed releasing - pipelined (they can differ by an
-//   ulp). Built with --fmad=false and without fast math, as every kernel of
-//   the port.
+// - A row's feasibility and score are placement.cuh's shard_row (shared
+//   with kernel 5, csrc/shard_wave.cu, so both give the same bits for the
+//   same row); the future view uses the scan association ((idle +
+//   releasing) - pipelined) - pipe_extra, not the fused placers'
+//   precomputed releasing - pipelined (they can differ by an ulp). Built
+//   with --fmad=false and without fast math, as every kernel of the port.
 //
 // What bounds it: each launch reads about 21 float rows of N (0.86 MB at
 // N = 10,240 with two resource dims), 0.26 us at 3.35 TB/s, and does a few
@@ -64,9 +65,6 @@ enum Ptr {
 // integer dimensions of shard_candidates_launch
 enum Dim { D_D, D_NL, D_R, D_G, N_DIMS };
 
-// fields of the task row i32[1, 6] (shard_placer.TASK_FIELDS)
-enum TaskField { T_PREF, T_TMPL, T_GRP, T_VOLN, T_VOLOK, T_REV };
-
 struct Args {
   NodeEnv env;          // alloc, cnt, maxp, gidle0, idle, pipe, pods, gpux
   const float* req;     // [1, R (+1)]
@@ -79,79 +77,22 @@ struct Args {
   int D, NL;
 };
 
-// a view's running candidate
-struct Cand {
-  float s;  // best masked score
-  int i;    // lowest global row at s
-  int n;    // feasible rows at s
-};
-
-__device__ __forceinline__ void merge(Cand& a, float s, int i, int n) {
-  if (s > a.s) {
-    a.s = s;
-    a.i = i;
-    a.n = n;
-  } else if (s == a.s) {
-    a.i = i < a.i ? i : a.i;
-    a.n += n;
-  }
-}
-
 __global__ void __launch_bounds__(BLOCK)
     shard_cand_kernel(const __grid_constant__ Args a) {
   const NodeEnv& e = a.env;
-  const int R = e.R, G = e.G, N = e.N;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int off = blockIdx.x * a.NL, end = off + a.NL;
   const float NEG_F = static_cast<float>(-1e30);
-  const float EPS_FIT = static_cast<float>(1e-5);
 
   // the task, from device memory
-  float rr[MAX_R];
-  for (int r = 0; r < R; ++r) rr[r] = a.req[r];
-  const float gr = G > 0 ? a.req[R] : 0.0f;
-  const float grm = gr - EPS_FIT;
-  const int pref = a.task[T_PREF], tmpl = a.task[T_TMPL];
-  const int grp = a.task[T_GRP], voln = a.task[T_VOLN];
-  const bool volok = a.task[T_VOLOK] > 0, rev = a.task[T_REV] > 0;
-  const bool is_tgt = a.istgt[0] > 0;
-  const float* trow = e.tstat + static_cast<size_t>(tmpl) * N;
-  const float* tsrow = e.tscore + static_cast<size_t>(tmpl) * N;
-  const float* narow = e.nascore + static_cast<size_t>(tmpl) * N;
-  const float* orrow = e.orfeas + static_cast<size_t>(grp > 0 ? grp : 0) * N;
+  const ShardTask t = load_shard_task(e, a.req, a.task, 1, a.istgt[0] > 0);
 
   Cand c[2] = {{NEG_F, INT_MAX, 0}, {NEG_F, INT_MAX, 0}};
   int any = 0;  // bit v: some row is feasible in view v
   for (int i = off + tid; i < end; i += BLOCK) {
-    // static feasibility: the node_ok conjunction of the scan branch
-    bool sfeas = trow[i] > 0.0f;
-    sfeas = sfeas && !(e.blocknr[i] > 0.0f && !rev) && !(e.blockall[i] > 0.0f);
-    sfeas = sfeas && (orrow[i] > 0.0f || grp < 0);
-    sfeas = sfeas && volok && (voln < 0 || i == voln);
-    sfeas = sfeas && (!(e.locked[i] > 0.0f) || is_tgt);
-    bool fit_now = true, fit_fut = true;
-    for (int r = 0; r < R; ++r) {
-      const size_t k = static_cast<size_t>(r) * N + i;
-      const float idle = e.idle[k];
-      const float fut = fmaxf(((idle + a.rel[k]) - a.pip[k]) - e.pipe[k], 0.0f);
-      fit_now = fit_now && rr[r] <= idle + EPS_FIT;
-      fit_fut = fit_fut && rr[r] <= fut + EPS_FIT;
-    }
-    bool shared = sfeas && (e.cnt[i] + e.pods[i]) < e.maxp[i];
-    if (G > 0) {
-      bool ok = gr <= 0.0f;
-      for (int g = 0; g < G; ++g) {
-        const size_t k = static_cast<size_t>(g) * N + i;
-        ok = ok || (e.gidle0[k] - e.gpux[k]) >= grm;
-      }
-      shared = shared && ok;
-    }
-    // the reference's float32 addition order
-    float score = dyn_score(e, i, rr);
-    score = score + tsrow[i];
-    score = score + (narow[i] + (rev ? e.bonus[i] : 0.0f));
-    score = score + ((pref >= 0 && i == pref) ? 100.0f : 0.0f);
-    const bool feas[2] = {shared && fit_now, shared && fit_fut};
+    const RowEval r = shard_row(e, a.rel, a.pip, t, i);
+    const float score = r.score;
+    const bool feas[2] = {r.now, r.fut};
     for (int v = 0; v < 2; ++v) {
       merge(c[v], feas[v] ? score : NEG_F, i, feas[v] ? 1 : 0);
       any |= feas[v] ? (1 << v) : 0;

@@ -121,7 +121,8 @@ class SchedulerConfiguration:
     #: node-axis sharded allocate cycle over a device mesh
     #: (parallel/sharding.py): one pop and one attempt at a time, each
     #: attempt one launch of the shard-local candidate kernel over every
-    #: shard, the shards' winners combined as the reference combines them.
+    #: shard, the shards' winners combined as the reference combines them
+    #: (or, with ``wave_width`` > 1, one wave of attempts a launch).
     #: Decisions are bit-identical to the unsharded path. Requires the
     #: delta path (``delta_uploads: true``, the default), as in the
     #: reference: with delta uploads off the knob is ignored. YAML:
@@ -147,14 +148,14 @@ class SchedulerConfiguration:
     #: ``use_pallas: interpret``.
     use_pallas: Optional[object] = None
     #: wavefront task placement width, threaded into
-    #: AllocateConfig.wave_width: each inner iteration evaluates the next
-    #: W eligible tasks of the popped job against the same capacity
-    #: snapshot in one batched sweep, then commits in strict task order
-    #: with an in-graph conflict rule — the committed decision sequence
-    #: is identical to W=1 at every width. 1 (default) keeps the per-task
-    #: sweep byte-for-byte unchanged; normalize_wave clamps illegal
-    #: combinations (pod affinity / host ports force 1). YAML: top-level
-    #: ``wave_width: 8``.
+    #: AllocateConfig.wave_width: on the sharded cycle each wave evaluates
+    #: the next W slots of the popped job against the same capacity
+    #: snapshot in one launch of the wide candidate kernel, then commits
+    #: in strict task order with the conflict rule — the committed
+    #: decision sequence is identical to W=1 at every width. The fused
+    #: placers (no sharding) take whole job sections and ignore it.
+    #: normalize_wave clamps illegal combinations (pod affinity / host
+    #: ports force 1). YAML: top-level ``wave_width: 8``.
     wave_width: int = 1
     #: fleet runtime (volcano_tpu/fleet): max tenants served per fleet
     #: cycle. None (default) serves every admitted tenant each cycle; a

@@ -15,7 +15,8 @@ plugin instances + Allocate/Pipeline ops) and framework.go:29-63
 
 With conf ``sharding: true`` the allocate cycle splits the node axis over
 a mesh of the session's device (``parallel/sharding.py``): one pop and one
-attempt at a time through the shard-local candidate kernel.
+attempt at a time through the shard-local candidate kernel, or, with
+``wave_width`` W > 1, waves of W attempts through the wide one.
 
 Not carried yet (ROADMAP): incremental refresh, device-resident delta
 uploads, pipelined dispatch, a mesh over several cards, the CPU-oracle

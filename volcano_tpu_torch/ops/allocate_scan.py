@@ -20,6 +20,13 @@ Two paths, chosen by :func:`derive_batching`:
   pops up to ``batch_rounds`` jobs, recomputing the keys after every
   commit, and stops when the true next pop is not a candidate.
 
+With a node mesh the cycle takes the reference's sharded scan path
+instead: one pop at a time, each slot one attempt through the shard-local
+candidate search (``ops/shard_placer.py``), or with ``wave_width`` W > 1
+the wavefront section walk: waves of W slots, each one launch of the wide
+candidate search (``ops/shard_wave.py``), committed in one batch or in
+slot order with an exact rescore of the rows the wave touched.
+
 Each round launches one placer and folds its outputs back into the per-job
 state; the loop runs until no job is eligible, with one host readback per
 round. With pod affinity both placers carry the live inter-pod affinity
@@ -36,6 +43,7 @@ lowest node index instead of rand.Intn (scheduler_helper.go:227).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -51,13 +59,15 @@ from . import predicates as P
 from . import round_placer
 from . import scoring as S
 from . import shard_placer as sp
+from . import shard_wave as sw
 from .fairshare import drf_job_shares, hdrf_level_keys, namespace_shares
 from .round_placer import MODE_ALLOCATED, MODE_NONE, MODE_PIPELINED
 from .select import lex_argmin
 
 __all__ = ["MODE_NONE", "MODE_ALLOCATED", "MODE_PIPELINED", "AllocateConfig",
            "AllocateExtras", "AllocateResult", "derive_batching",
-           "make_allocate_cycle", "normalize_wave", "unpack_decisions"]
+           "make_allocate_cycle", "normalize_wave", "unpack_decisions",
+           "wave_candidate_depth"]
 
 #: jobs per placer launch on the static-key path (see derive_batching)
 DEFAULT_BATCH_JOBS = 8
@@ -68,6 +78,15 @@ DEFAULT_BATCH_ROUNDS = 32
 _EPS_CMP = float(np.float32(1e-6))    # overused queue slack
 _EPS_FIT = float(np.float32(1e-5))    # give-up bound slack
 _EPS_DIV = float(np.float32(1e-9))
+
+
+def wave_candidate_depth(wave_width: int) -> int:
+    """Candidate-list depth C of the wavefront sweep: each slot of a wave
+    carries its top C feasible nodes by (score desc, index asc). A wave of
+    W slots touches at most W - 1 nodes before slot w commits, so
+    C = min(W, 8) makes an exhausted list (the only truncation) impossible
+    below W = 8 while bounding what the sweep ships."""
+    return min(max(1, int(wave_width)), 8)
 
 
 def normalize_wave(cfg: "AllocateConfig") -> "AllocateConfig":
@@ -139,7 +158,10 @@ class AllocateConfig:
     #: turns it off when no task requests GPU memory
     enable_gpu: bool = True
     telemetry: bool = False              # in-graph cycle telemetry (not ported yet)
-    wave_width: int = 1                  # wavefront placement (not ported yet)
+    #: wavefront width: W slots a sweep on the sharded path (the fused
+    #: placers take whole job sections and ignore it, as the
+    #: reference's do)
+    wave_width: int = 1
 
 
 @dataclass
@@ -252,18 +274,12 @@ def _check_supported(cfg: AllocateConfig, mesh=None) -> None:
             (cfg.enable_pod_affinity, "enable_pod_affinity under a node mesh",
              "ROADMAP queue 1 item 6d: the reference runs it on its plain "
              "scan path, without the shard-local kernel"),
-            (cfg.wave_width > 1, "wave_width > 1 under a node mesh",
-             "ROADMAP queue 1 item 6b, kernel 5 and the wavefront section "
-             "walk"),
         ]
     todo += [
         (cfg.enable_host_ports, "enable_host_ports",
          "ROADMAP queue 1 item 4b, host ports: the reference runs them on "
          "its scan path only, so they need a per-task path in the port"),
-        (cfg.telemetry, "telemetry", "ROADMAP queue 1 item 7, telemetry "
-         "and wavefront"),
-        (cfg.wave_width > 1, "wave_width > 1", "ROADMAP queue 1 item 7, "
-         "telemetry and wavefront"),
+        (cfg.telemetry, "telemetry", "ROADMAP queue 1 item 7, telemetry"),
     ]
     for hit, what, item in todo:
         if hit:
@@ -333,20 +349,28 @@ def _dyn_static_args(cfg, snap, extras, keys_static):
                 tgt=tgt)
 
 
-def _sharded_pops(cfg, D, place_shard, snap, extras, node_env, eligible,
-                  order_keys, jobs_min_req, st, max_rounds):
+def _step(name):
+    """A span around one step of the wavefront walk: a no-op here;
+    ``scripts/torch_cycle_profile.py`` replaces it with a profiler span."""
+    return contextlib.nullcontext()
+
+
+def _sharded_pops(cfg, D, place_shard, place_wave, snap, extras, node_env,
+                  eligible, order_keys, jobs_min_req, st, max_rounds):
     """The sharded scan path of :func:`make_allocate_cycle`: pops until no
-    job is eligible, each pop one job's slots in slot order, one attempt a
-    slot. ``st`` holds the cycle's state tensors, which are updated in place
-    (``eligible`` and ``order_keys`` read them); returns the final idle
-    [R, N].
+    job is eligible, each pop one job's slots in slot order: with
+    ``wave_width`` 1 one attempt a slot, with W > 1 the wavefront section
+    walk (``wave_walk`` below). ``st`` holds the cycle's state tensors,
+    which are updated in place (``eligible`` and ``order_keys`` read
+    them); returns the final idle [R, N].
 
     Everything stays on the device: the popped job, its slots, the combined
     winner and every flag are tensors, the commits are ``index_add_`` and
     index writes on device indices, and the host reads the state back once
     a pop (whether any job is eligible, whether the last pop progressed,
     and which slots are open: the attempts run over those only, as the
-    reference's steps of closed slots change nothing)."""
+    reference's steps of closed slots change nothing); the wave walk reads
+    back once a wave, and once a slot of its in-order walk."""
     nodes, tasks, jobs = snap.nodes, snap.tasks, snap.jobs
     dev = nodes.idle.device
     f32, i32 = torch.float32, torch.int32
@@ -356,6 +380,7 @@ def _sharded_pops(cfg, D, place_shard, snap, extras, node_env, eligible,
     if N % D:
         raise ValueError(f"sharding needs nodes % mesh devices == 0 "
                          f"(N={N}, devices={D})")
+    W = int(cfg.wave_width)
     keys_static = not (cfg.drf_job_order or cfg.drf_ns_order
                        or cfg.enable_hdrf)
     target_job = int(extras.target_job)
@@ -392,6 +417,237 @@ def _sharded_pops(cfg, D, place_shard, snap, extras, node_env, eligible,
 
     def zeros(dtype):
         return torch.zeros(1, dtype=dtype, device=dev)
+
+    def commit(do_alloc, do_pipe, node, rr, gr, t1):
+        """One slot's placement (the reference's task_step commit): take
+        ``rr`` from idle (``do_alloc``) or add it to the pipelined extra
+        (``do_pipe``) on ``node``, count the pod, charge the lowest fitting
+        GPU card, and record the task ``t1``. Masked: a slot that places
+        nothing adds zeros and writes to the sentinel row T."""
+        placed = do_alloc | do_pipe
+        idle.index_add_(1, node, (-(do_alloc.to(f32) * rr))[:, None])
+        pipe.index_add_(1, node, (do_pipe.to(f32) * rr)[:, None])
+        pods.index_add_(1, node, placed.to(f32)[None, :])
+        if gpu_pick:
+            # shared-GPU card: lowest fitting card on the chosen node
+            # (predicates.pick_gpu_row), charged for the cycle
+            col = (gidle0_t.index_select(1, node)
+                   - gpux.index_select(1, node))[:, 0]          # [G]
+            fits = col >= gr - _EPS_FIT
+            card = torch.where(fits.any() & (gr > 0),
+                               fits.to(torch.uint8).argmax(), -1)
+            charge = placed & (card >= 0)
+            gpux.view(-1).index_add_(
+                0, card.clamp_min(0) * N + node,
+                torch.where(charge, gr, 0.0))
+            task_gpu[torch.where(charge, t1, T)] = card.to(i32).view(1)
+        tw = torch.where(placed, t1, T)
+        task_node[tw] = node.to(i32)
+        task_mode[tw] = torch.where(do_alloc, MODE_ALLOCATED,
+                                    MODE_PIPELINED).to(i32)
+        return placed
+
+    if W > 1:
+        C = wave_candidate_depth(W)
+        iw = torch.arange(W, device=dev)
+        eye_w = iw[:, None] == iw[None, :]
+        ltri = iw[None, :] < iw[:, None]                   # [w, v]: v < w
+        no_task = torch.full((W,), -1, dtype=jobs.task_table.dtype,
+                             device=dev)
+        no_suffix = torch.zeros(W, dtype=i32, device=dev)
+        g_iota = torch.arange(gidle0_t.shape[0], device=dev)[:, None]
+        sentinel = torch.full((W + 1,), N, dtype=i32, device=dev)
+        # the static node maps stacked for the rescore's row gathers; the
+        # GPU check whenever a card may be charged (the reference's
+        # rescore always checks, and a zero request always passes)
+        maps = sw.row_maps(sp.ShardArgs(None, None, None, *shard_env[:13],
+                                        None, None, None, None, None),
+                           gidle0_t if gpu_pick else None)
+
+    def wave_walk(task_ids, lo, hi, nbe, suffix_after, istgt, ready0,
+                  min_avail, can_batch):
+        """The wavefront section walk of one pop (allocate_scan.py
+        :2096-2437): waves of W slots from the job's cursor, each one
+        launch of the wide candidate kernel against the wave's starting
+        state, the shards' lists combined, then either the batched commit
+        (``fast_ok``) or the in-order walk that rescores the rows the wave
+        touched and truncates at a slot whose list ran out. The reference
+        enters a wave only while the job has not stopped or broken
+        (``_wave_cond``); the host knows both, as it reads back once a
+        wave ``fast_ok`` and whether the batched commit's last slot
+        stopped, and runs only the branch taken. The in-order walk reads
+        back after each slot whether the wave ended there (a stop, a break
+        or a truncation: the slots after it would change nothing), and
+        ends it there. Returns the pop's accumulators."""
+        n_alloc, n_pipe, n_adv = zeros(i32), zeros(i32), zeros(i32)
+        placed_sum = torch.zeros(R, dtype=f32, device=dev)
+        stopped, broke = zeros(torch.bool), zeros(torch.bool)
+        # the pop's slots padded by a window of empty ones, so a wave's
+        # window is a slice
+        tid_pad = torch.cat([task_ids, no_task])
+        tcl_pad = tid_pad.clamp_min(0).long()
+        req_pad = treq.index_select(0, tcl_pad)              # [M+W, R(+1)]
+        int_pad = torch.cat([tint.index_select(0, tcl_pad),
+                             istgt.expand(M + W, 1)], 1)      # [M+W, 7]
+        gq_pad = tasks.gpu_request.index_select(0, tcl_pad)
+        nbe_pad = not_be[tcl_pad]
+        suf_pad = torch.cat([suffix_after, no_suffix])
+
+        def rows_at(rows, task):
+            """The state and node maps at ``rows`` for the wave's slots
+            ``task`` (columns of the task table)."""
+            return sw.gather_rows(maps, rows, task[1].long(),
+                                  task[2].long().clamp_min(0), idle, pipe,
+                                  pods, gpux)
+
+        pos, halted = lo, False
+        while pos < hi and not halted:
+            win = slice(pos, pos + W)
+            t_w, t_cl = tid_pad[win], tcl_pad[win]
+            req_w = req_pad[win].T.contiguous()              # [R(+1), W]
+            task_w = int_pad[win].T.contiguous()             # [7, W]
+            rr_w, gq_w = req_w[:R], gq_pad[win]
+            gq_c = gq_w if gpu_pick else None       # the rescore's GPU check
+            suf_w = suf_pad[win]
+            args = [req_w, task_w] + shard_env + [idle, pipe, pods]
+            if cfg.enable_gpu:
+                args.append(gpux)
+            with _step("wave_sweep"):
+                cands = place_wave(cfg, D, C, args)
+            with _step("wave_combine"):
+                e_i, e_v, e_o, cnt, _ = sw.combine(cands, C, N)
+            sw.waves += 1
+
+            # ---- the optimistic batched commit (:2131-2215): every
+            # slot takes its predicted pick, either its own entry 0 (all
+            # distinct) or, on a list the slots share, entry w; the picks
+            # are distinct, so one rescore of every pick at the state
+            # after the whole wave is each slot's rescore of the walk
+            with _step("wave_fast_ok"):
+                ein, evn, eon = e_i[0], e_v[0], e_o[0]
+                d0 = ein[:, 0]
+                use0 = eon[:, 0].all() & ~((d0[:, None] == d0[None, :])
+                                           & ~eye_w).any()
+                if W <= C:
+                    shared = ((ein[:, :W] == ein[0:1, :W]).all()
+                              & eon[iw, iw].all())
+                    struct_ok = use0 | shared
+                    pk = torch.where(use0, d0, ein[iw, iw])
+                    ev_p = torch.where(use0, evn[:, 0], evn[iw, iw])
+                else:
+                    # the shared-list shape needs W entries a slot; the
+                    # lists keep C < W of them
+                    struct_ok, pk, ev_p = use0, d0, evn[:, 0]
+                pk_l = pk.long().clamp_max(N - 1)
+                post = rows_at(pk_l[None, :], task_w)
+                post = post._replace(idle=post.idle + (-rr_w)[:, None, :],
+                                     pods=post.pods + 1.0)
+                if gpu_pick:
+                    col = gidle0_t[:, pk_l] - gpux[:, pk_l]      # [G, W]
+                    fits = col >= gq_w - _EPS_FIT
+                    card0 = torch.where(fits.any(0) & (gq_w > 0),
+                                        fits.to(torch.uint8).argmax(0), -1)
+                    charge0 = card0 >= 0
+                    hit = (g_iota == card0) & charge0
+                    post = post._replace(gpux=torch.where(
+                        hit[:, None, :], post.gpux + gq_w, post.gpux))
+                ok2, _, s2 = sw.rescore(cfg, post, pk_l[None, :], rr_w,
+                                        task_w, gq_c)
+                act_all = ((t_w >= 0) & nbe_pad[win]).all()
+                lower = pk[None, :] < pk[:, None]
+                beat = ok2 & ((s2 > ev_p[:, None])
+                              | ((s2 == ev_p[:, None]) & lower))
+                nobeat = ~(beat & ltri).any()
+                if cfg.enable_gang:
+                    ready_seq = (ready0 + n_alloc + 1 + iw) >= min_avail
+                else:
+                    ready_seq = torch.ones(W, dtype=torch.bool, device=dev)
+                stop_seq = ready_seq & (suf_w > 0) & ~can_batch
+                fast_ok = (struct_ok & act_all & nobeat
+                           & ~stop_seq[:-1].any())
+                fast, stop_last = torch.stack([fast_ok,
+                                               stop_seq[-1]]).tolist()
+            if fast:
+                with _step("wave_commit_fast"):
+                    # _commit_fast (:2223-2266): one add a pick row
+                    sw.fast_waves += 1
+                    idle.index_add_(1, pk_l, -rr_w)
+                    pods.index_add_(1, pk_l, torch.ones_like(rr_w[:1]))
+                    if gpu_pick:
+                        gpux.view(-1).index_add_(
+                            0, card0.clamp_min(0) * N + pk_l,
+                            torch.where(charge0, gq_w, 0.0))
+                        task_gpu[torch.where(charge0, t_cl, T)] = (
+                            card0.to(i32))
+                    task_node[t_cl] = pk.to(i32)
+                    task_mode.index_fill_(0, t_cl, MODE_ALLOCATED)
+                    n_alloc += W
+                    for w in range(W):          # f32 fold in slot order
+                        placed_sum = placed_sum + rr_w[:, w]
+                    n_adv += W
+                    stopped |= stop_seq[-1]
+                    pos += W
+                    halted = bool(stop_last)
+                continue
+
+            # ---- _commit_slow (:2268-2406): the slots in order, each
+            # resolved from its list and the rescored touched rows; a slot
+            # whose list ran out truncates the wave and replays at the
+            # head of the next (slots past the open range, and those after
+            # the wave's end, change nothing)
+            with _step("wave_commit_slow"):
+                touched = sentinel.clone()
+                tcount = zeros(torch.int64)
+                adv = W
+                for w in range(min(W, hi - pos)):
+                    t1 = t_cl[w:w + 1]
+                    can_run = (t_w[w:w + 1] >= 0) & ~(stopped | broke)
+                    active = can_run & nbe_pad[pos + w]
+                    tch = touched[:W]
+                    rows = tch.long().clamp_max(N - 1)[None, :]
+                    task1 = task_w[:, w:w + 1]
+                    ok_n, ok_f, s_t = sw.rescore(
+                        cfg, rows_at(rows, task1), rows, rr_w[:, w:w + 1],
+                        task1, gq_c[w:w + 1] if gpu_pick else None)
+                    wins, fnd, dec = sw.resolve(
+                        e_i[:, w], e_v[:, w], e_o[:, w], cnt[:, w], tch,
+                        torch.cat([ok_n, ok_f]), s_t[0], C, N)
+                    do_alloc = active & dec[0] & fnd[0]
+                    if cfg.enable_pipelining:
+                        do_pipe = active & dec[0] & ~fnd[0] & dec[1] & fnd[1]
+                        conflict = active & (~dec[0]
+                                             | (dec[0] & ~fnd[0] & ~dec[1]))
+                    else:
+                        do_pipe = zeros(torch.bool)
+                        conflict = active & ~dec[0]
+                    node = torch.where(do_alloc, wins[0],
+                                       torch.where(do_pipe, wins[1], 0)).long()
+                    rr = rr_w[:, w]
+                    placed = commit(do_alloc, do_pipe, node, rr, gq_w[w], t1)
+                    n_alloc += do_alloc
+                    n_pipe += do_pipe
+                    placed_sum = placed_sum + placed.to(f32) * rr
+                    # a truncated slot advances nothing
+                    n_adv += can_run & ~conflict
+                    if cfg.enable_gang:
+                        ready_aft = (ready0 + n_alloc) >= min_avail
+                    else:
+                        ready_aft = torch.ones_like(placed)
+                    stopped |= (placed & ready_aft & (suf_w[w] > 0)
+                                & ~can_batch)
+                    broke |= active & ~conflict & ~placed
+                    touched[torch.where(placed, tcount, W)] = node.to(i32)
+                    tcount += placed
+                    cut, halted = torch.stack([
+                        conflict[0], (stopped | broke)[0]]).tolist()
+                    if cut:
+                        sw.truncations += 1
+                        adv = w
+                        break
+                    if halted:
+                        break
+                pos += adv
+        return n_alloc, n_pipe, n_adv, placed_sum, stopped, broke
 
     progressed = torch.ones((), dtype=torch.bool, device=dev)
     rounds = 0
@@ -435,9 +691,6 @@ def _sharded_pops(cfg, D, place_shard, snap, extras, node_env, eligible,
         nb_row = (open_slot & nbe).to(i32)
         # real tasks remaining strictly after slot m (allocate.go:262)
         suffix_after = nb_row.flip(0).cumsum(0, dtype=i32).flip(0) - nb_row
-        req_p = treq.index_select(0, tcl)                       # [M, R(+1)]
-        int_p = tint.index_select(0, tcl)                       # [M, 6]
-        greq_p = tasks.gpu_request.index_select(0, tcl)         # [M]
         istgt = (ji == target_job).to(i32).view(1, 1)
         saved = [idle.clone(), pipe.clone(), pods.clone(),
                  gpux.clone() if gpu_pick else None]
@@ -445,56 +698,44 @@ def _sharded_pops(cfg, D, place_shard, snap, extras, node_env, eligible,
         n_alloc, n_pipe, n_adv = zeros(i32), zeros(i32), zeros(i32)
         placed_sum = torch.zeros(R, dtype=f32, device=dev)
         stopped, broke = zeros(torch.bool), zeros(torch.bool)
-        for m in range(lo, hi):
-            # ---- task_step (allocate_scan.py:1841-2080, the shard side)
-            can_run = open_slot[m] & ~(stopped | broke)
-            active = can_run & nbe[m]
-            args = [req_p[m:m + 1], int_p[m:m + 1], istgt] + shard_env
-            args += [idle, pipe, pods] + ([gpux] if cfg.enable_gpu else [])
-            idx, found, _ = sp.combine(place_shard(cfg, D, args), N)
-            can_now = found[0:1] & active
-            can_fut = found[1:2] & active & bool(cfg.enable_pipelining)
-            do_alloc = can_now
-            do_pipe = ~can_now & can_fut
-            placed = do_alloc | do_pipe
-            node = torch.where(do_alloc, idx[0:1], idx[1:2]).long()  # [1]
-            rr = req_p[m, :R]
-            idle.index_add_(1, node, (-(do_alloc.to(f32) * rr))[:, None])
-            pipe.index_add_(1, node, (do_pipe.to(f32) * rr)[:, None])
-            pods.index_add_(1, node, placed.to(f32)[None, :])
-            t1 = tcl[m:m + 1]
-            if gpu_pick:
-                # shared-GPU card: lowest fitting card on the chosen node
-                # (predicates.pick_gpu_row), charged for the cycle
-                gr = greq_p[m]
-                col = (gidle0_t.index_select(1, node)
-                       - gpux.index_select(1, node))[:, 0]          # [G]
-                fits = col >= gr - _EPS_FIT
-                card = torch.where(fits.any() & (gr > 0),
-                                   fits.to(torch.uint8).argmax(), -1)
-                charge = placed & (card >= 0)
-                gpux.view(-1).index_add_(
-                    0, card.clamp_min(0) * N + node,
-                    torch.where(charge, gr, 0.0))
-                task_gpu[torch.where(charge, t1, T)] = card.to(i32).view(1)
-            tw = torch.where(placed, t1, T)
-            task_node[tw] = node.to(i32)
-            task_mode[tw] = torch.where(do_alloc, MODE_ALLOCATED,
-                                        MODE_PIPELINED).to(i32)
-            n_alloc += do_alloc
-            n_pipe += do_pipe
-            placed_sum = placed_sum + placed.to(f32) * rr
-            n_adv += can_run
-            # yield: a ready job with tasks still queued re-enters the job
-            # queue after each placement (allocate.go:262-265); break: a
-            # task no node can take fails the job (allocate.go:210-214)
-            if cfg.enable_gang:
-                ready_aft = (ready0 + n_alloc) >= min_avail
-                stopped |= (active & placed & ready_aft
-                            & (suffix_after[m] > 0) & ~can_batch)
-            else:
-                stopped |= active & placed & (suffix_after[m] > 0) & ~can_batch
-            broke |= active & ~placed
+        if W > 1:
+            n_alloc, n_pipe, n_adv, placed_sum, stopped, broke = wave_walk(
+                task_ids, lo, hi, nbe, suffix_after, istgt, ready0,
+                min_avail, can_batch)
+        else:
+            req_p = treq.index_select(0, tcl)                   # [M, R(+1)]
+            int_p = tint.index_select(0, tcl)                   # [M, 6]
+            greq_p = tasks.gpu_request.index_select(0, tcl)     # [M]
+            for m in range(lo, hi):
+                # ---- task_step (allocate_scan.py:1841-2080, the shard side)
+                can_run = open_slot[m] & ~(stopped | broke)
+                active = can_run & nbe[m]
+                args = [req_p[m:m + 1], int_p[m:m + 1], istgt] + shard_env
+                args += [idle, pipe, pods] + ([gpux] if cfg.enable_gpu else [])
+                idx, found, _ = sp.combine(place_shard(cfg, D, args), N)
+                can_now = found[0:1] & active
+                can_fut = found[1:2] & active & bool(cfg.enable_pipelining)
+                do_alloc = can_now
+                do_pipe = ~can_now & can_fut
+                node = torch.where(do_alloc, idx[0:1], idx[1:2]).long()  # [1]
+                rr = req_p[m, :R]
+                placed = commit(do_alloc, do_pipe, node, rr, greq_p[m],
+                                tcl[m:m + 1])
+                n_alloc += do_alloc
+                n_pipe += do_pipe
+                placed_sum = placed_sum + placed.to(f32) * rr
+                n_adv += can_run
+                # yield: a ready job with tasks still queued re-enters the job
+                # queue after each placement (allocate.go:262-265); break: a
+                # task no node can take fails the job (allocate.go:210-214)
+                if cfg.enable_gang:
+                    ready_aft = (ready0 + n_alloc) >= min_avail
+                    stopped |= (active & placed & ready_aft
+                                & (suffix_after[m] > 0) & ~can_batch)
+                else:
+                    stopped |= (active & placed & (suffix_after[m] > 0)
+                                & ~can_batch)
+                broke |= active & ~placed
 
         # ---- gang finalize: JobReady / JobPipelined / Discard
         # (allocate_scan.py:2440-2537)
@@ -541,15 +782,16 @@ def _sharded_pops(cfg, D, place_shard, snap, extras, node_env, eligible,
 
 
 def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
-                        mesh=None, shard_placer=None):
+                        mesh=None, shard_placer=None, wave_placer=None):
     """Build the allocate pass for a static config.
 
     Returned signature: ``allocate(snap, extras) -> AllocateResult`` with
     ``snap``/``extras`` dataclass trees of tensors on one device
     (``arrays.schema.to_device``). ``placer`` replaces the static-key round
     placer (``round_placer.round_place``), ``dyn_placer`` the dynamic-key
-    one (``dyn_placer.dyn_place``) and ``shard_placer`` the shard-local
-    candidate search (``shard_placer.shard_candidates``), each with the
+    one (``dyn_placer.dyn_place``), ``shard_placer`` the shard-local
+    candidate search (``shard_placer.shard_candidates``) and
+    ``wave_placer`` the wide one (``shard_wave.shard_wave``), each with the
     same signature; callers use them to run the plain versions on the card
     or to watch the launches.
 
@@ -561,13 +803,22 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
     shard-local in the candidate kernel (one launch covers every shard of
     the device), the shards' winners combined as the reference combines
     them, and the commit, the gang finalize and the queue and drf
-    accounting in tensor code. The batching fields are ignored there, as
-    the reference ignores them off its fused placers.
+    accounting in tensor code. With ``wave_width`` W > 1 the slots of a pop
+    go in waves of W instead, each wave one launch of the wide candidate
+    kernel (the reference's wavefront section walk, :2096-2437), with the
+    same decisions. The batching fields are ignored there, as the
+    reference ignores them off its fused placers.
+
+    Without a mesh the fused placers take whole job sections and ignore
+    ``wave_width``, as the reference's do (allocate_scan.py:623-627).
     """
+    if mesh is not None:
+        cfg = normalize_wave(cfg)
     _check_supported(cfg, mesh)
     place = placer or round_placer.round_place
     place_dyn = dyn_placer or dp.dyn_place
     place_shard = shard_placer or sp.shard_candidates
+    place_wave = wave_placer or sw.shard_wave
     K = max(1, int(cfg.batch_jobs))
     KP = max(0, int(cfg.batch_rounds))
     dyn = KP > 0 and mesh is None
@@ -724,7 +975,8 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
 
         if mesh is not None:
             idle = _sharded_pops(
-                cfg, mesh.size, place_shard, snap, extras, node_env,
+                cfg, mesh.size, place_shard, place_wave, snap, extras,
+                node_env,
                 eligible, order_keys, jobs_min_req, dict(
                     idle=idle, pipe=pipe, pods=pods, gpux=gpux,
                     task_node=task_node, task_mode=task_mode,

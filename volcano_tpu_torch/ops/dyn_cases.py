@@ -18,6 +18,9 @@
   a shard with no feasible row, the preferred node, a volume pin, locks
   and the target job, OR groups, the revocable bonus and taint-prefer
   rows, with GPU cards and without.
+- :func:`make_wave_inputs` and :data:`WAVE_CASES`: the wide candidate
+  search (``ops/shard_wave.py``): the shard cases with W task columns, and
+  shards with fewer feasible rows than the candidate depth.
 
 The CPU tests hold the plain versions against the reference's Pallas
 kernels in interpret mode on these inputs, and ``chip_smoke.py`` holds the
@@ -435,11 +438,15 @@ SHARD_CASES = {
     "or_group_revocable": dict(or_group=True, rev=True),
 }
 
+#: wide candidate search cases (make_wave_inputs): the shard cases, and a
+#: shard with fewer feasible rows than the candidate depth
+WAVE_CASES = dict(SHARD_CASES, fewer_than_depth=dict(few=True))
+
 
 def make_shard_inputs(seed, D=2, NL=48, R=2, P=3, GR=2, G=2, gpu=False,
                       ties=False, infeasible_shard=False, nothing=False,
                       pref=False, volpin=False, locked_target=False,
-                      or_group=False, rev=False):
+                      or_group=False, rev=False, few=False):
     """The shard placer's full-width arguments (``shard_placer.ShardArgs``
     order, GPU entries only with ``gpu``) over D shards of NL rows.
 
@@ -449,7 +456,8 @@ def make_shard_inputs(seed, D=2, NL=48, R=2, P=3, GR=2, G=2, gpu=False,
     feasible row; ``nothing`` leaves no row feasible anywhere; ``pref``,
     ``volpin``, ``locked_target``, ``or_group`` and ``rev`` set the task's
     preferred node, volume pin, the locks and the target flag, an OR group
-    and the revocable bonus. Without a knob each gate is drawn at random."""
+    and the revocable bonus; ``few`` leaves each shard two rows the task's
+    template admits. Without a knob each gate is drawn at random."""
     rng = np.random.RandomState(seed)
     N = D * NL
     n = NL if ties else N          # rows drawn; tiled D times with ties
@@ -489,6 +497,11 @@ def make_shard_inputs(seed, D=2, NL=48, R=2, P=3, GR=2, G=2, gpu=False,
         rows["tstat"][tmpl, d * NL:(d + 1) * NL] = 0.0
     if nothing:
         rows["tstat"][tmpl] = 0.0
+    if few:
+        keep = np.zeros(N, bool)
+        for d in range(D):
+            keep[d * NL + rng.choice(NL, 2, replace=False)] = True
+        rows["tstat"][tmpl] = keep.astype(F32)
     req = (rng.randint(1, 9, (1, R)) / 4.0).astype(F32)
     if gpu:
         req = np.concatenate([req, [[F32(rng.randint(0, 9))]]], 1)
@@ -507,3 +520,37 @@ def make_shard_inputs(seed, D=2, NL=48, R=2, P=3, GR=2, G=2, gpu=False,
     args += [rows["idle"], rows["pipe"], rows["pods"]]
     args += [rows["gpux"]] if gpu else []
     return [np.ascontiguousarray(a) for a in args]
+
+
+def make_wave_inputs(seed, D=2, W=4, NL=48, R=2, gpu=False, **knobs):
+    """The wide candidate search's full-width arguments
+    (``shard_wave.WaveArgs`` order): the node rows and the first column's
+    task of :func:`make_shard_inputs` with the same knobs, then W - 1 more
+    tasks on the same template, OR group and target flag (so the knobs'
+    gates hold for every column), each with its own request, preferred
+    node, volume pin and revocable flag, drawn as make_shard_inputs draws
+    them (a preferred node and a volume pin on every column when the
+    knobs ask for them)."""
+    args = make_shard_inputs(seed, D=D, NL=NL, R=R, gpu=gpu, **knobs)
+    req, task, istgt = args[:3]
+    rng = np.random.RandomState(seed + 7919)
+    N = D * NL
+    reqs, tasks = [req[0]], [task[0]]
+    for _ in range(W - 1):
+        r = (rng.randint(1, 9, R) / 4.0).astype(F32)
+        if gpu:
+            r = np.concatenate([r, [F32(rng.randint(0, 9))]])
+        reqs.append(r)
+        tasks.append(np.array([
+            int(rng.randint(N)) if knobs.get("pref") or rng.rand() < 0.2
+            else -1,
+            task[0, 1], task[0, 2],
+            int(rng.randint(N)) if knobs.get("volpin") or rng.rand() < 0.1
+            else -1,
+            int(rng.rand() < 0.97),
+            int(knobs.get("rev", False) or rng.rand() < 0.3)], I32))
+    wreq = np.stack(reqs, 1).astype(F32)                      # [R(+1), W]
+    wtask = np.concatenate([np.stack(tasks, 1),
+                            np.full((1, W), istgt[0, 0], I32)], 0)
+    return [np.ascontiguousarray(a) for a in [wreq, wtask] + args[3:]]
+

@@ -56,6 +56,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .scoring import sqrt32
+
 MODE_NONE = 0
 MODE_ALLOCATED = 1
 MODE_PIPELINED = 2
@@ -202,7 +204,7 @@ def _dyn_score(w, idle, alloc_t, rr_col):
         mean = _fold(frac * counted) / n
         dev = frac - mean
         var = _fold((dev * dev) * counted) / n
-        score = score + (w_bal * (1.0 - torch.sqrt(var))) * 100.0
+        score = score + (w_bal * (1.0 - sqrt32(var))) * 100.0
     return score
 
 

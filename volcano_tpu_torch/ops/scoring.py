@@ -69,6 +69,14 @@ def most_allocated_score(used, allocatable, resreq):
     return fold_sum(used_frac.clamp(0.0, 1.0) * counted) / n * 100.0
 
 
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as IEEE ``sqrtf`` (the
+    kernels' and XLA's): taken in float64 and rounded once, which is exact
+    for float32 inputs. PyTorch's vectorised float32 ``sqrt`` on the CPU
+    is off by an ulp on some inputs (about 0.6 % of uniform ones)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def balanced_allocation_score(used, allocatable, resreq):
     """100 - 100*std(resource fractions): k8s
     NodeResourcesBalancedAllocation (nodeorder.go:241-260)."""
@@ -79,7 +87,7 @@ def balanced_allocation_score(used, allocatable, resreq):
     mean = fold_sum(frac * counted) / n
     dev = frac - mean[:, None]
     var = fold_sum((dev * dev) * counted) / n
-    return (1.0 - torch.sqrt(var)) * 100.0
+    return (1.0 - sqrt32(var)) * 100.0
 
 
 def taint_prefer_score(tol_hash, tol_effect, tol_mode,

@@ -119,6 +119,59 @@ def unpack_args(cfg, args) -> ShardArgs:
 # the plain version: one shard, the reference's argument order
 # --------------------------------------------------------------------------
 
+class RowTask(NamedTuple):
+    """Tasks' scalars for :func:`row_eval`, each shaped to broadcast against
+    the rows (``rr`` with the R resource dims first)."""
+    rr: torch.Tensor               # f32 [R, ..]
+    gq: Optional[torch.Tensor]     # f32 [1, ..] GPU request, None: no check
+    pref: torch.Tensor             # i32 [1, ..]
+    grp: torch.Tensor
+    voln: torch.Tensor
+    volok: torch.Tensor            # bool [1, ..]
+    rev: torch.Tensor
+    istgt: torch.Tensor
+
+
+def row_eval(cfg, t: RowTask, rows, v: ShardArgs):
+    """Feasibility in the now and future views, and the score, of tasks on
+    node rows: the column arithmetic of ``_shard_cand_kernel`` and
+    ``_shard_wave_kernel`` before their picks, op for op. ``rows`` holds
+    global row numbers [1, ..]; each node field of ``v`` holds its values
+    at those rows, [k, ..] (``tstat``, ``tscore``, ``nascore`` at the task's
+    template row and ``orfeas`` at its OR group's row, k = 1; ``req``,
+    ``task`` and ``istgt`` unused). Returns (score, feas_now, feas_fut),
+    [1, ..] each. The plain kernels call it on a shard's rows and the
+    wavefront's exact rescore on gathered rows, so both give the same bits
+    for the same row."""
+    # static feasibility: the node_ok conjunction of the scan branch
+    sfeas = v.tstat > 0
+    sfeas = sfeas & ~((v.blocknr > 0) & ~t.rev) & ~(v.blockall > 0)
+    sfeas = sfeas & ((v.orfeas > 0) | (t.grp < 0))
+    sfeas = sfeas & t.volok & ((t.voln < 0) | (rows == t.voln))
+    sfeas = sfeas & (~(v.locked > 0) | t.istgt)
+
+    # scan association: ((idle + releasing) - pipelined) - pipe_extra
+    future = (v.idle + v.rel - v.pip - v.pipe).clamp_min(0.0)
+    pods_ok = (v.cnt + v.pods) < v.maxp
+    shared = sfeas & pods_ok
+    if t.gq is not None:
+        gidle = v.gidle0 - v.gpux
+        gpu_ok = (t.gq <= 0) | (gidle >= t.gq - _EPS_FIT).any(0, keepdim=True)
+        shared = shared & gpu_ok
+    fit_now = (t.rr <= v.idle + _EPS_FIT).all(0, keepdim=True)
+    fit_fut = (t.rr <= future + _EPS_FIT).all(0, keepdim=True)
+
+    # the reference's float32 addition order (see round_placer.place_one)
+    zero = torch.zeros((), dtype=torch.float32, device=rows.device)
+    score = _dyn_score(_weights(cfg), v.idle, v.alloc, t.rr)
+    score = score + v.tscore
+    score = score + (v.nascore + torch.where(t.rev, v.bonus, zero))
+    score = score + torch.where((t.pref >= 0) & (rows == t.pref),
+                                torch.full((), 100.0, device=rows.device),
+                                zero)
+    return score, shared & fit_now, shared & fit_fut
+
+
 def shard_scores(cfg, NL: int, args):
     """The score row and the now / future feasibility rows [1, NL] of one
     shard (the part of ``_shard_cand_kernel`` before its picks), with the
@@ -129,50 +182,24 @@ def shard_scores(cfg, NL: int, args):
     nxt = lambda: next(it)   # noqa: E731
     rr_col = nxt()
     gq = nxt() if gpu else None
-    pref, tmpl, grp, voln, volok, rev, istgt, off = (
-        int(v) for v in torch.cat([nxt().reshape(1) for _ in range(8)])
-        .tolist())
+    pref, tmpl, grp, voln, volok, rev, istgt, off = (nxt() for _ in range(8))
     tstat, tscore, nascore = nxt(), nxt(), nxt()
-    blocknr, blockall = nxt() > 0, nxt() > 0
-    bonus = nxt()
-    locked = nxt() > 0
+    blocknr, blockall, bonus, locked = nxt(), nxt(), nxt(), nxt()
     orfeas, rel, pip, alo, cnt, maxp = (nxt() for _ in range(6))
     gid0 = nxt() if gpu else None
     idle, pipe, podsx = nxt(), nxt(), nxt()
     gpux = nxt() if gpu else None
     dev = idle.device
     iota_n = torch.arange(NL, dtype=torch.int32, device=dev)[None, :] + off
-    rev_b, volok_b, is_tgt = rev > 0, volok > 0, istgt > 0
-
-    # static feasibility row: the node_ok conjunction of the scan branch
-    sfeas = tstat[tmpl:tmpl + 1] > 0
-    sfeas = sfeas & ~(blocknr & (not rev_b)) & ~blockall
-    sfeas = sfeas & ((orfeas[max(grp, 0):max(grp, 0) + 1] > 0) | (grp < 0))
-    sfeas = sfeas & volok_b & ((voln < 0) | (iota_n == voln))
-    sfeas = sfeas & (~locked | is_tgt)
-
-    # scan association: ((idle + releasing) - pipelined) - pipe_extra
-    future = (idle + rel - pip - pipe).clamp_min(0.0)
-    pods_ok = (cnt + podsx) < maxp
-    shared = sfeas & pods_ok
-    if gpu:
-        gidle = gid0 - gpux
-        gpu_ok = (gq <= 0) | (gidle >= gq - _EPS_FIT).any(0, keepdim=True)
-        shared = shared & gpu_ok
-    fit_now = (rr_col <= idle + _EPS_FIT).all(0, keepdim=True)
-    fit_fut = (rr_col <= future + _EPS_FIT).all(0, keepdim=True)
-    feas_now = shared & fit_now
-    feas_fut = shared & fit_fut
-
-    # the reference's float32 addition order (see round_placer.place_one)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    score = _dyn_score(_weights(cfg), idle, alo, rr_col)
-    score = score + tscore[tmpl:tmpl + 1]
-    score = score + (nascore[tmpl:tmpl + 1]
-                     + (bonus if rev_b else torch.zeros_like(bonus)))
-    score = score + torch.where((pref >= 0) & (iota_n == pref),
-                                torch.full((), 100.0, device=dev), zero)
-
+    trow = tmpl.reshape(1).long()
+    orrow = grp.reshape(1).long().clamp_min(0)
+    t = RowTask(rr_col, gq, pref, grp, voln, volok > 0, rev > 0, istgt > 0)
+    v = ShardArgs(
+        None, None, None, tstat.index_select(0, trow),
+        tscore.index_select(0, trow), nascore.index_select(0, trow),
+        blocknr, blockall, bonus, locked, orfeas.index_select(0, orrow),
+        rel, pip, alo, cnt, maxp, gid0, idle, pipe, podsx, gpux)
+    score, feas_now, feas_fut = row_eval(cfg, t, iota_n, v)
     return score, feas_now, feas_fut, iota_n, off
 
 
@@ -195,9 +222,8 @@ def shard_candidates_plain(cfg, NL: int, R: int, G: int, GR: int, args):
     def pick(feas):
         masked = torch.where(feas, score, torch.full_like(score, NEG))
         best = masked.max(1, keepdim=True).values
-        idx = torch.where(masked == best, iota_n,
-                          torch.full_like(iota_n, big_i)).min(
-                              1, keepdim=True).values
+        idx = torch.where(masked == best, iota_n, big_i).min(
+            1, keepdim=True).values
         fn = feas.to(torch.int32).max(1, keepdim=True).values
         tie = ((masked == best) & feas).sum(1, keepdim=True,
                                             dtype=torch.int32)
@@ -274,25 +300,34 @@ N_PTRS = len(ShardArgs._fields) + N_OUTS
 DIMS = ("D", "NL", "R", "G")
 
 
+def node_layout(cfg, a) -> dict:
+    """The dtype and shape of each node-axis argument of ``a`` (the
+    reference's env refs, then the state), for ``check_layout``."""
+    R, N = a.idle.shape
+    P = a.tstat.shape[0]
+    GR = a.orfeas.shape[0]
+    G = a.gidle0.shape[0] if cfg.enable_gpu else 0
+    f = torch.float32
+    return dict(
+        tstat=((P, N), f), tscore=((P, N), f), nascore=((P, N), f),
+        blocknr=((1, N), f), blockall=((1, N), f), bonus=((1, N), f),
+        locked=((1, N), f), orfeas=((GR, N), f), rel=((R, N), f),
+        pip=((R, N), f), alloc=((R, N), f), cnt=((1, N), f),
+        maxp=((1, N), f), gidle0=((G, N), f), idle=((R, N), f),
+        pipe=((R, N), f), pods=((1, N), f), gpux=((G, N), f))
+
+
 def _check(cfg, D: int, a: ShardArgs):
     """Device, dtype, shape and layout of every argument, and a node axis
     that D shards divide."""
     R, N = a.idle.shape
     if D < 1 or N % D:
         raise ValueError(f"{N} node rows do not split into {D} shards")
-    P = a.tstat.shape[0]
-    GR = a.orfeas.shape[0]
-    G = a.gidle0.shape[0] if cfg.enable_gpu else 0
-    f, i = torch.float32, torch.int32
+    i = torch.int32
     check_layout(dict(
-        req=((1, R + (1 if cfg.enable_gpu else 0)), f),
+        req=((1, R + (1 if cfg.enable_gpu else 0)), torch.float32),
         task=((1, len(TASK_FIELDS)), i), istgt=((1, 1), i),
-        tstat=((P, N), f), tscore=((P, N), f), nascore=((P, N), f),
-        blocknr=((1, N), f), blockall=((1, N), f), bonus=((1, N), f),
-        locked=((1, N), f), orfeas=((GR, N), f), rel=((R, N), f),
-        pip=((R, N), f), alloc=((R, N), f), cnt=((1, N), f),
-        maxp=((1, N), f), gidle0=((G, N), f), idle=((R, N), f),
-        pipe=((R, N), f), pods=((1, N), f), gpux=((G, N), f)), a)
+        **node_layout(cfg, a)), a)
 
 
 def shard_candidates_cuda(cfg, D: int, args) -> ShardCandidates:

@@ -97,7 +97,8 @@ def mesh_for_nodes(n_nodes: int, requested: Optional[int] = None,
 def make_sharded_allocate(cfg: AllocateConfig, mesh: NodeMesh, snap):
     """The allocate cycle with the node axis split over ``mesh``:
     ``fn(snap, extras) -> AllocateResult``, each pop's attempts running the
-    shard-local candidate kernel over every shard (see
+    shard-local candidate kernel over every shard, or with ``wave_width``
+    W > 1 its waves the wide one (see
     ``allocate_scan.make_allocate_cycle``). ``snap`` fixes the node axis,
     which the mesh's shard count must divide; the returned function moves
     its inputs to the mesh's device, as the reference's jit places them on
