@@ -27,11 +27,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
 7. dynamic-key placer against its plain version, bitwise: the first 3
    launches of check B's cycle, and small built inputs for a gang discard
    and demotion, a zero-deserved queue, drf with 3 namespaces, GPU
-   requests, the hdrf guard, a short pop budget and padded candidates;
-   and the segmented sum (the cycle's drf namespace fold, once a round)
-   against its plain version, bitwise, on check B's job allocations at the
-   cycle's start and at the recorded launches, and on seeded values whose
-   sums depend on the order;
+   requests, the hdrf guard, a short pop budget, padded candidates and
+   the sla deadline key; and the segmented sum (the cycle's drf
+   namespace fold, once a round) against its plain version, bitwise, on
+   check B's job allocations at the cycle's start and at the recorded
+   launches, and on seeded values whose sums depend on the order;
 8. check A: the bench's fair-share configuration 3 (bench.py:680-716: 1024
    nodes, 8 weighted queues, 3,125 gangs of 16 tasks, drf job order,
    binpack) built without a Session; fingerprint c4b4ff88c1a32065, 16,404
@@ -114,7 +114,36 @@ Phases, each of which fails the run (exit code 1) when it fails:
 23. the wide candidate kernel's time: device time per launch in a
    ``torch.profiler`` trace at check I's shapes (1 shard of 10,240 rows, 8
    columns) and at 4 shards of 2,560, beside the plain version's and the
-   bound.
+   bound;
+24. kernel 6 (graphcheck's planted shard gather,
+   ``analysis/sharding.planted_gather``): the fixture on the card at the
+   reference's (D = 2, 32 nodes, 4 columns) and at (D = 4, 10,240 nodes,
+   4 columns), check G's padded node axis; the counts are set to 0 just
+   before the second and read just after, and kernel 6 must have launched
+   once a shard; each launch's output against the plain version on the
+   same gathered block, and the fixture's output against ``x * 2``,
+   bitwise; the sharding audit (``pallas_block_findings``) must flag the
+   planted launches with the key ``sharding:pallas-block:<where>:(n, 4)``
+   and find nothing in the launch records of check H's cycle (phase 18, 4
+   shards) and check J's binpack cycle at W = 4 (phase 22), which must not
+   be empty; then kernel 6's time for the fixture's 4 launches (CUDA
+   events), beside the plain version's, ``torch.mul`` on the gathered
+   block (the library call) and the bound;
+25. check K, the shipped conf's whole action list:
+   ``Session(admission_scenario(), check K's conf, now=4149.0)`` and
+   ``get_action(name).execute(ssn)`` for enqueue, allocate and backfill:
+   check B's cluster as a burst of 3,125 Pending gangs with queue
+   capabilities, every 10th gang under a 300 s SLA, and 1,024 best-effort
+   jobs, under conf/volcano-scheduler-ci.conf's tiers (its reclaim and
+   preempt wait for ROADMAP item 5b); the counts are set to 0 just before
+   and read just after, and the dynamic-key placer and the segmented sum
+   must have launched; the enqueued count and admitted mask, the allocate
+   fingerprint and binds, and the backfill count and binds must be the JAX
+   Session's; then the dynamic-key kernel's first 3 launches on the
+   allocate cycle's own inputs (the sla deadline an ordering key, the
+   snapshot repacked after enqueue), enqueue's 3 one-segment sums and the
+   cycle's namespace folds at check K's shapes, each against its plain
+   version, bitwise.
 
 The expected fingerprints are the JAX package's scan path's (and, for A,
 B, D and the raw configuration-5 cycle, its oracle's too). Each phase's
@@ -151,6 +180,14 @@ CHECK_H = ((1024, 256, 16), ("0bed0b3363cfef13", 4096, 256))
 #: for the shipped conf
 WAVE_I = 8
 WAVES_J = ((4, 16), 8)
+#: check K: enqueued jobs and sha256 of the admitted mask, the allocate
+#: fingerprint and binds, backfilled tasks and sha256 of their (task, node)
+#: pairs: the JAX Session's on the same cluster and conf (PERF.md section 2)
+CHECK_K = (2675, "8da50a76f2936639", "ff4864be716c903f", 16498, 512,
+           "4650ef8564235adc")
+#: kernel 6's fixture shapes: the reference's default, and check G's padded
+#: node axis (shards, nodes, columns)
+PLANTED = ((2, 32, 4), (4, 10240, 4))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -206,6 +243,22 @@ def shipped_conf():
                                             "binpack")])])
 
 
+def check_k_conf():
+    """Check K's conf: conf/volcano-scheduler-ci.conf's tiers (priority,
+    gang, conformance, sla | drf, predicates, proportion, nodeorder,
+    binpack, overcommit) with the actions enqueue, allocate, backfill (its
+    reclaim and preempt are not ported yet)."""
+    from volcano_tpu_torch.framework import (PluginOption,
+                                             SchedulerConfiguration, Tier)
+    return SchedulerConfiguration(
+        actions=["enqueue", "allocate", "backfill"], tiers=[
+            Tier([PluginOption(n) for n in ("priority", "gang",
+                                            "conformance", "sla")]),
+            Tier([PluginOption(n) for n in ("drf", "predicates",
+                                            "proportion", "nodeorder",
+                                            "binpack", "overcommit")])])
+
+
 def sharded_conf():
     """The north-star conf (gang + binpack) with ``sharding: true``."""
     conf = gang_binpack_conf()
@@ -233,17 +286,24 @@ def wave_conf(sharding):
     return conf
 
 
-def fair_share_cluster():
-    """The bench's configuration 3 (bench.py:680-716): 1024 nodes, 8 queues
-    q0..q7 of weight 1 + i % 4, 3,125 gangs of 16 tasks, job j in q{j % 8}."""
-    from volcano_tpu_torch.api import QueueInfo
-    from volcano_tpu_torch.synthetic import _synthetic_cluster
-    c = _synthetic_cluster(n_nodes=1024, n_jobs=3125, tasks_per_job=16)
-    for q in range(8):
-        c.add_queue(QueueInfo(f"q{q}", weight=1 + q % 4))
-    for j, job in enumerate(c.jobs.values()):
-        job.queue = f"q{j % 8}"
-    return c
+class SegFoldTap:
+    """Seam on a module's ``seg_fold``: launches the wrapper as before and
+    keeps a copy of the arguments of every call made while installed."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+        self.wrapped = module.seg_fold
+
+    def __call__(self, vals, seg, num):
+        self.calls.append((vals.clone(), seg.clone(), num))
+        return self.wrapped(vals, seg, num)
+
+    def __enter__(self):
+        self.module.seg_fold = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.seg_fold = self.wrapped
 
 
 class Recorder:
@@ -271,15 +331,18 @@ class Recorder:
         return rp.round_place_cuda(cfg, *shape, args)
 
 
-def record_launches(ssn, keep, stop_after=None, dyn=False):
-    """Run the session's allocate cycle on the card through a Recorder."""
+def record_launches(ssn, keep, stop_after=None, dyn=False, inputs=None):
+    """Run the session's allocate cycle on the card through a Recorder, on
+    ``inputs`` (snapshot, cfg, extras) when given, else on the session's
+    snapshot and derived inputs as they stand."""
     from volcano_tpu_torch.arrays import to_device
     from volcano_tpu_torch.ops.allocate_scan import make_allocate_cycle
-    cfg, extras = ssn._derived_allocate_inputs()
+    snap, cfg, extras = inputs or (ssn.snap,
+                                   *ssn._derived_allocate_inputs())
     rec = Recorder(keep, stop_after, dyn)
     seam = dict(dyn_placer=rec) if dyn else dict(placer=rec)
     try:
-        make_allocate_cycle(cfg, **seam)(to_device(ssn.snap, "cuda"),
+        make_allocate_cycle(cfg, **seam)(to_device(snap, "cuda"),
                                          to_device(extras, "cuda"))
     except Recorder.Stop:
         pass
@@ -994,7 +1057,8 @@ def main():
     try:
         t0 = time.perf_counter()
         logs = _build.build(["round_placer", "dyn_placer", "seg_fold",
-                             "shard_candidates", "shard_wave"])
+                             "shard_candidates", "shard_wave",
+                             "planted_gather"])
         log(f"build {time.perf_counter() - t0:.1f}s")
         for name, text in logs.items():
             log(f"--- nvcc {name}\n{text.strip()}")
@@ -1096,6 +1160,7 @@ def main():
     # ---- 7. dynamic-key placer against its plain version --------------
     clock.lap('7 dyn_vs_plain')
     from volcano_tpu_torch.ops import dyn_placer as dp
+    from volcano_tpu_torch.synthetic import fair_share_cluster
     shipped = shipped_conf()
     try:
         t0 = time.perf_counter()
@@ -1425,7 +1490,11 @@ def main():
 
     # ---- 18. check H: make_sharded_allocate on a 4-shard virtual mesh --
     clock.lap("18 check_H")
+    from volcano_tpu_torch.ops import launch_record
     from volcano_tpu_torch.parallel import NodeMesh, make_sharded_allocate
+    #: the launch records of check H's and J's cycles on 4 shards, audited
+    #: in phase 24
+    shard_records = {}
     try:
         h_size, h_want = CHECK_H
         snap_h, _ = pack(_synthetic_cluster(*h_size))
@@ -1437,8 +1506,11 @@ def main():
         for D in (4, 1):
             zero_shard_counts()
             t0 = time.perf_counter()
-            res = make_sharded_allocate(
-                cfg_h, NodeMesh(("cuda",) * D), s_d)(s_d, e_d)
+            with launch_record.recording() as launched:
+                res = make_sharded_allocate(
+                    cfg_h, NodeMesh(("cuda",) * D), s_d)(s_d, e_d)
+            if D == 4:
+                shard_records["check_H[W=1,4dev]"] = launched
             packed_h[D] = res.packed_decisions().cpu()
             tn, tm = res.task_node.cpu().numpy(), res.task_mode.cpu().numpy()
             out_h[D] = dict(cycle_ms=(time.perf_counter() - t0) * 1000,
@@ -1556,9 +1628,12 @@ def main():
         for W in WAVES_J[0]:
             zero_wave_counts()
             t0 = time.perf_counter()
-            res = make_sharded_allocate(
-                AllocateConfig(binpack_weight=1.0, wave_width=W),
-                NodeMesh(("cuda",) * 4), s_d)(s_d, e_d)
+            with launch_record.recording() as launched:
+                res = make_sharded_allocate(
+                    AllocateConfig(binpack_weight=1.0, wave_width=W),
+                    NodeMesh(("cuda",) * 4), s_d)(s_d, e_d)
+            if W == 4:
+                shard_records["check_J[W=4,4dev]"] = launched
             tn, tm = res.task_node.cpu().numpy(), res.task_mode.cpu().numpy()
             out_j[W] = dict(cycle_ms=(time.perf_counter() - t0) * 1000,
                             **wave_counts(), placed=int((tm > 0).sum()),
@@ -1607,6 +1682,167 @@ def main():
             "library_ms": None})
     except Exception as e:
         fail("23 (wide candidate kernel time)", e)
+
+    # ---- 24. kernel 6 and the shard-local launch check -----------------
+    clock.lap("24 planted_gather")
+    from volcano_tpu_torch.analysis import sharding as gs
+    try:
+        planted_out = {}
+        for D, n_nodes, cols in PLANTED:
+            gen = torch.Generator().manual_seed(D)
+            gs.launches = 0
+            x, out, records, rows_per = gs.planted_gather(
+                D, n_nodes, cols, "cuda", gen)
+            torch.cuda.synchronize()
+            planted_launches = gs.launches
+            assert planted_launches == D == len(records), planted_launches
+            full = x.contiguous()       # every launch's gathered block
+            got = gs.planted_double_cuda(full)
+            want = gs.planted_double_plain(full)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), "kernel 6 != plain"
+            assert torch.equal(out.view(torch.int32),
+                               (x * 2).view(torch.int32)), "fixture != x * 2"
+            keys = [f.key for f in gs.pallas_block_findings(
+                records, n_nodes, rows_per, "planted")]
+            assert keys == [f"sharding:pallas-block:planted:"
+                            f"{(n_nodes, cols)}"], keys
+            planted_out[(D, n_nodes, cols)] = dict(
+                launches=planted_launches, max_abs_err=err, findings=keys)
+        audit = {}
+        h_nodes = CHECK_H[0][0]
+        for where, launched in shard_records.items():
+            found = gs.pallas_block_findings(launched, h_nodes,
+                                             h_nodes // 4, where)
+            audit[where] = dict(launches=len(launched),
+                                findings=[f.key for f in found])
+            assert launched, f"{where}: no launch recorded"
+            assert not found, [f.key for f in found]
+        assert len(audit) == 2, sorted(audit)
+        # time: the fixture's D launches on its gathered block
+        reps = 200
+        times = {}
+        calls = dict(kernel=gs.planted_double_cuda,
+                     plain=gs.planted_double_plain,
+                     library=lambda t: torch.mul(t, 2.0))
+        for name in ("plain", "kernel", "library", "kernel", "plain"):
+            fn = calls[name]
+            for _ in range(3):
+                fn(full)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                for _ in range(D):
+                    fn(full)
+            end.record()
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(start.elapsed_time(end) / reps)
+        nbytes = D * 2 * full.numel() * 4
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = D * full.numel() / PEAK_F32 * 1e3
+        t = dict(D=D, n_nodes=n_nodes, cols=cols,
+                 ms=min(times["kernel"]), plain_ms=min(times["plain"]),
+                 library_ms=min(times["library"]),
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes=nbytes, runs_ms=times)
+        log(json.dumps({"phase": "planted_gather",
+                        "fixtures": {str(k): v
+                                     for k, v in planted_out.items()},
+                        "audit": audit, "time": t}))
+        kernels.append({
+            "name": "planted_gather", "route": "cuda",
+            "source": "volcano_tpu_torch/csrc/planted_gather.cu",
+            "replaces": "volcano_tpu/analysis/sharding.py:149",
+            "launches": planted_launches,
+            "max_abs_err": max(v["max_abs_err"]
+                               for v in planted_out.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    except Exception as e:
+        fail("24 (kernel 6 and the shard-local launch check)", e)
+
+    # ---- 25. check K: enqueue, allocate, backfill -----------------------
+    clock.lap("25 check_K")
+    import hashlib
+
+    import numpy as np
+
+    from volcano_tpu_torch.actions import get_action
+    from volcano_tpu_torch.ops import enqueue as enqueue_ops
+    from volcano_tpu_torch.synthetic import admission_scenario
+    try:
+        t0 = time.perf_counter()
+        ssn_k = Session(admission_scenario(), check_k_conf(), now=4149.0,
+                        device="cuda")
+        build_k_s = time.perf_counter() - t0
+        pack_k_ms = ssn_k.stats["pack_ms"]
+        action_ms = {}
+        zero_dyn_counts()
+        with SegFoldTap(enqueue_ops) as enqueue_folds:
+            for name in ssn_k.conf.actions:
+                t0 = time.perf_counter()
+                get_action(name).execute(ssn_k)
+                action_ms[name] = (time.perf_counter() - t0) * 1000
+                if name == "enqueue":
+                    # what allocate then runs on (no device work)
+                    alloc_inputs = (ssn_k.snap,
+                                    *ssn_k._derived_allocate_inputs())
+                if name == "allocate":
+                    n_alloc = len(ssn_k.binds)
+        counts_k = dyn_counts()
+        # kernel 3 and the segmented sum against their plain versions on
+        # check K's own inputs: the sla deadline as an ordering key, the
+        # repacked snapshot, and enqueue's one-segment sums
+        assert alloc_inputs[1].sla_job_order, "check K without the sla key"
+        dyn_k = record_launches(ssn_k, keep=3, stop_after=3, dyn=True,
+                                inputs=alloc_inputs)
+        assert len(dyn_k) == 3, len(dyn_k)
+        dyn_k_err = compare_dyn_kernel_plain(dyn_k)
+        assert len(enqueue_folds.calls) == 3, len(enqueue_folds.calls)
+        seg_k_err = compare_seg_fold_plain(
+            enqueue_folds.calls + seg_fold_calls(ssn_k, dyn_k))
+        admitted = ssn_k.last_enqueue
+        res = ssn_k.last_allocate
+        sha = fingerprint(res.task_node, res.task_mode)
+        pairs = np.asarray([[ssn_k.maps.task_index[b.task_uid],
+                             ssn_k.maps.node_index[b.node_name]]
+                            for b in ssn_k.binds[n_alloc:]],
+                           np.int32).reshape(-1, 2)
+        got = (ssn_k.stats["enqueued"],
+               hashlib.sha256(admitted.tobytes()).hexdigest()[:16], sha,
+               n_alloc, ssn_k.stats["backfilled"],
+               hashlib.sha256(pairs.tobytes()).hexdigest()[:16])
+        log(json.dumps({
+            "phase": "check_K", "nodes": len(ssn_k.cluster.nodes),
+            "jobs": len(ssn_k.cluster.jobs),
+            "cluster_build_s": build_k_s, "pack_ms": pack_k_ms,
+            "repack_ms": ssn_k.stats["pack_ms"], "action_ms": action_ms,
+            "enqueue_ms": ssn_k.stats["enqueue_ms"],
+            "cycle_ms": ssn_k.stats["cycle_ms"],
+            "apply_ms": ssn_k.stats["apply_ms"],
+            "backfill_ms": ssn_k.stats["backfill_ms"], **counts_k,
+            "dyn_vs_plain": dict(launches=len(dyn_k), max_abs_err=dyn_k_err),
+            "seg_fold_vs_plain": dict(
+                enqueue_calls=len(enqueue_folds.calls),
+                max_abs_err=seg_k_err),
+            "enqueued": got[0], "admitted_sha256": got[1],
+            "fingerprint": got[2], "allocate_binds": got[3],
+            "jobs_ready": int(res.job_ready.sum()),
+            "backfilled": got[4], "backfill_sha256": got[5],
+            "backfill_nodes": sorted(set(pairs[:, 1].tolist())),
+            "most_pods_on_a_node": max(len(n.tasks) for n in
+                                       ssn_k.cluster.nodes.values())}))
+        assert counts_k["launches"] > 0, "check K launched no dyn placer"
+        assert counts_k["seg_fold_launches"] > 0, \
+            "check K launched no segmented sum"
+        assert got == CHECK_K, (got, CHECK_K)
+    except Exception as e:
+        fail("25 (check K, enqueue, allocate, backfill)", e)
     clock.lap()
 
     log(json.dumps({"phase_seconds": clock.seconds}))

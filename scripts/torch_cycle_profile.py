@@ -111,7 +111,8 @@ def main():
                           text=True, timeout=60).stdout.strip()
     if args.cell == "fair_share":
         import chip_smoke
-        ci, conf = chip_smoke.fair_share_cluster(), chip_smoke.shipped_conf()
+        from volcano_tpu_torch.synthetic import fair_share_cluster
+        ci, conf = fair_share_cluster(), chip_smoke.shipped_conf()
     elif args.cell == "affinity":
         import chip_smoke
         from volcano_tpu_torch.synthetic import affinity_scenario

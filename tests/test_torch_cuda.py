@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 round placer (with and without its pod-affinity step), the pod-affinity
 step in the dynamic-key placer, the segmented sum, the shard-local
-candidate search and its wide (wavefront) form; and the sharded cycle's
-waits on the card, with and without waves.
+candidate search and its wide (wavefront) form, and kernel 6 (graphcheck's
+planted shard gather); the sharded cycle's waits on the card, with and
+without waves; and sort_order, enqueue and backfill on the card against
+the CPU.
 
 Imports nothing of JAX, so it runs on a machine with a card and no JAX:
 
@@ -380,3 +382,98 @@ def test_mesh_over_the_cards():
     n = torch.cuda.device_count()
     assert scheduler_mesh().size == n
     assert mesh_for_nodes(10240, 1).devices == (torch.device("cuda", 0),)
+
+
+# --------------------------------------------------------------------------
+# kernel 6 (graphcheck's planted shard gather), sort_order, and the
+# enqueue and backfill passes on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 4), (10240, 4), (1000, 3), (1, 1)])
+def test_planted_kernel_matches_plain_bitwise(shape):
+    need_card()
+    from volcano_tpu_torch.analysis import sharding as gs
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    x[0, 0] = float("inf")
+    x = x.cuda()
+    before = gs.launches
+    got = gs.planted_double(x, shape[0])
+    torch.cuda.synchronize()
+    assert gs.launches == before + 1
+    want = gs.planted_double_plain(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):
+        gs.planted_double_cuda(x.double())
+    with pytest.raises(ValueError):
+        gs.planted_double_cuda(torch.zeros(4, 3, device="cuda").t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,n_nodes,cols", [(2, 32, 4), (4, 10240, 4)])
+def test_planted_fixture_on_the_card(D, n_nodes, cols):
+    need_card()
+    from volcano_tpu_torch.analysis import sharding as gs
+    before = gs.launches
+    x, out, records, rows_per = gs.planted_gather(
+        D, n_nodes, cols, "cuda", torch.Generator().manual_seed(D))
+    torch.cuda.synchronize()
+    assert gs.launches == before + D
+    assert torch.equal(out.view(torch.int32), (x * 2).view(torch.int32))
+    keys = [f.key for f in gs.pallas_block_findings(records, n_nodes,
+                                                    rows_per, "planted")]
+    assert keys == [f"sharding:pallas-block:planted:{(n_nodes, cols)}"]
+
+
+@pytest.mark.cuda
+def test_sharded_cycles_on_the_card_stay_shard_local():
+    need_card()
+    from volcano_tpu_torch.analysis import sharding as gs
+    findings, records = gs.check_sharding("cuda", (256, 64, 8))
+    assert findings == []
+    assert len(records) == 2 and all(records.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_sort_order_on_the_card_matches_the_cpu(seed):
+    need_card()
+    import numpy as np
+
+    from volcano_tpu_torch.ops.select import sort_order
+    rng = np.random.RandomState(seed)
+    n = 5000
+    keys = [torch.from_numpy(rng.randint(0, 3, n).astype("float32")),
+            torch.from_numpy(-rng.randint(0, 2, n).astype("float32")),
+            torch.from_numpy(rng.randint(0, 40, n).astype("int32"))]
+    mask = torch.from_numpy(rng.rand(n) < 0.8)
+    want = sort_order(keys, mask)
+    got = sort_order([k.cuda() for k in keys], mask.cuda())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conf", ["shipped", "check_k"])
+def test_actions_on_the_card_match_the_cpu(conf):
+    """enqueue, allocate and backfill through a Session on the card and on
+    the CPU: the same admitted mask, decisions and backfill."""
+    need_card()
+    import numpy as np
+
+    import chip_smoke
+    from volcano_tpu_torch.actions import get_action
+    from volcano_tpu_torch.framework import Session
+    from volcano_tpu_torch.synthetic import admission_scenario
+    make = {"shipped": chip_smoke.shipped_conf,
+            "check_k": chip_smoke.check_k_conf}[conf]
+    out = {}
+    for device in ("cpu", "cuda"):
+        ssn = Session(admission_scenario(64, 96, 16, 64), make(),
+                      now=4149.0, device=device)
+        for name in ssn.conf.actions:
+            get_action(name).execute(ssn)
+        out[device] = (ssn.last_enqueue, ssn.last_allocate.task_node,
+                       ssn.last_allocate.task_mode, *ssn.last_backfill)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_array_equal(a, b)
+    assert out["cuda"][0].any() and out["cuda"][4].any()

@@ -102,6 +102,29 @@ def test_cases_cover_what_they_name():
     assert all(seen.values()), seen
 
 
+def test_sla_case_orders_by_the_deadline():
+    """In the sla case the deadline key decides the order: taking its row
+    out (and the flag off) changes the outputs of some seed."""
+    changed = []
+    for seed in (0, 1, 2):
+        cfg, C, KP, M, args = case_inputs("sla_deadline", seed)
+        t = [torch.from_numpy(a) for a in args]
+        skeys = dp.unpack_args(cfg, t).skeys
+        plan, n_static = dp.key_plan(cfg, 0)
+        assert skeys.shape[0] == n_static
+        at = next(i for i, x in enumerate(t) if x is skeys)
+        without = list(t)
+        without[at] = torch.cat([skeys[:4], skeys[5:]]).contiguous()
+        got = dp.dyn_place_plain(cfg, C, KP, M, t)
+        want = dp.dyn_place_plain(
+            dataclasses.replace(cfg, sla_job_order=False), C, KP, M,
+            without)
+        assert torch.isfinite(skeys[4]).any()
+        changed.append(any(not torch.equal(a, b)
+                           for a, b in zip(got, want)))
+    assert any(changed), changed
+
+
 @pytest.mark.parametrize("flags", [dict(enable_gang=False),
                                    dict(enable_pipelining=False)])
 def test_plain_matches_pallas_interpret_configs(flags):

@@ -92,12 +92,18 @@ def test_conf_from_dataclasses_needs_no_yaml():
     assert ssn.binds
 
 
-@pytest.mark.parametrize("name", ["tdm", "reservation", "task-topology",
-                                  "sla"])
+@pytest.mark.parametrize("name", ["tdm", "reservation", "task-topology"])
 def test_unported_plugin_names_its_roadmap_item(name):
     conf = SchedulerConfiguration(tiers=[Tier([PluginOption(name)])])
-    with pytest.raises(KeyError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="ROADMAP queue 1 item 5b"):
         Session(random_cluster(tapi, 0), conf, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["overcommit", "sla"])
+def test_ported_enqueue_plugins_build(name):
+    conf = SchedulerConfiguration(tiers=[Tier([PluginOption(name)])])
+    ssn = Session(random_cluster(tapi, 0), conf, device="cpu")
+    assert ssn.plugin(name) is not None
 
 
 @pytest.mark.parametrize("conf_name", ["shipped", "builtin_default",
@@ -170,9 +176,12 @@ def test_hierarchy_matches_jax():
 
 def test_port_imports_without_jax():
     """Every module of the port imports (``parallel/``,
-    ``ops/shard_placer.py`` and ``ops/shard_wave.py`` among them), and a
-    session runs, with ``jax`` and ``volcano_tpu`` blocked; with
-    ``sharding: true`` too, and with ``wave_width: 8`` on top."""
+    ``ops/shard_placer.py``, ``ops/shard_wave.py``, ``analysis/``,
+    ``actions/``, ``ops/enqueue.py`` and ``ops/backfill.py`` among them),
+    and a session runs, with ``jax`` and ``volcano_tpu`` blocked; with
+    ``sharding: true`` too, and with ``wave_width: 8`` on top; and the
+    enqueue, allocate, backfill actions and the planted sharding check
+    run."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'volcano_tpu'):\n"
@@ -203,9 +212,27 @@ def test_port_imports_without_jax():
         "assert shard_wave.waves > 0\n"
         "assert [b.node_name for b in wave.binds] == "
         "[b.node_name for b in ssn.binds]\n"
+        "from volcano_tpu_torch.actions import get_action\n"
+        "from volcano_tpu_torch.synthetic import admission_scenario\n"
+        "conf = chip_smoke.check_k_conf()\n"
+        "adm = Session(admission_scenario(16, 12, 4, 8), conf, now=4149.0,\n"
+        "              device='cpu')\n"
+        "for name in conf.actions:\n"
+        "    get_action(name).execute(adm)\n"
+        "assert adm.stats['enqueued'] and adm.stats['backfilled']\n"
+        "import torch\n"
+        "from volcano_tpu_torch.analysis.sharding import (planted_gather,\n"
+        "    pallas_block_findings)\n"
+        "x, out, rec, rows = planted_gather(2, 32, 4, 'cpu')\n"
+        "assert torch.equal(out, x * 2)\n"
+        "assert pallas_block_findings(rec, 32, rows, 'planted')\n"
         "for m in ('volcano_tpu_torch.parallel.sharding',\n"
         "          'volcano_tpu_torch.ops.shard_placer',\n"
-        "          'volcano_tpu_torch.ops.shard_wave'):\n"
+        "          'volcano_tpu_torch.ops.shard_wave',\n"
+        "          'volcano_tpu_torch.ops.enqueue',\n"
+        "          'volcano_tpu_torch.ops.backfill',\n"
+        "          'volcano_tpu_torch.analysis.sharding',\n"
+        "          'volcano_tpu_torch.actions'):\n"
         "    assert m in sys.modules, m\n"
         "assert not any(k.split('.')[0] in ('jax', 'volcano_tpu')\n"
         "               and v is not None for k, v in sys.modules.items())\n"

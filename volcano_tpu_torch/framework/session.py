@@ -1,5 +1,6 @@
 """Session: one scheduling cycle's world state and pass composer (PyTorch
-port of ``volcano_tpu/framework/session.py``, allocate path).
+port of ``volcano_tpu/framework/session.py``: the enqueue, allocate and
+backfill passes).
 
 Reference: pkg/scheduler/framework/session.go:38-468 (per-cycle snapshot +
 plugin instances + Allocate/Pipeline ops) and framework.go:29-63
@@ -7,11 +8,15 @@ plugin instances + Allocate/Pipeline ops) and framework.go:29-63
 - packs the ClusterInfo snapshot into arrays (the Python packer),
 - asks each plugin for its contributions (score weights, fairness arrays,
   gates) and bakes them into AllocateConfig/AllocateExtras,
-- uploads the whole snapshot to its device, runs the allocate cycle and
-  reads the decisions back in one copy,
-- and turns the decision arrays into bind/pipeline intents (the Statement
-  commit boundary, statement.go:377-395: the cycle already committed or
-  discarded each gang, so apply is a readout).
+- uploads the whole snapshot to its device, runs a pass (enqueue,
+  allocate or backfill) and reads its result back in one copy,
+- and turns the result into PodGroup phase updates (enqueue) or bind and
+  pipeline intents (the Statement commit boundary, statement.go:377-395:
+  the cycle already committed or discarded each gang, so apply is a
+  readout).
+
+The conf's action list runs through ``volcano_tpu_torch.actions``:
+``for name in conf.actions: get_action(name).execute(ssn)``.
 
 With conf ``sharding: true`` the allocate cycle splits the node axis over
 a mesh of the session's device (``parallel/sharding.py``): one pop and one
@@ -20,7 +25,7 @@ attempt at a time through the shard-local candidate kernel, or, with
 
 Not carried yet (ROADMAP): incremental refresh, device-resident delta
 uploads, pipelined dispatch, a mesh over several cards, the CPU-oracle
-rung, metrics and trace spans, and the enqueue / backfill / preempt
+rung, metrics and trace spans, telemetry, and the preempt and reclaim
 passes.
 """
 
@@ -42,6 +47,8 @@ from ..arrays.hierarchy import build_hierarchy
 from ..ops.allocate_scan import (MODE_ALLOCATED, AllocateConfig,
                                  AllocateExtras, derive_batching,
                                  make_allocate_cycle, unpack_decisions)
+from ..ops.backfill import make_backfill_pass
+from ..ops.enqueue import EnqueueConfig, make_enqueue_pass
 from .conf import SchedulerConfiguration, parse_conf
 
 
@@ -59,12 +66,15 @@ class BindIntent:
 class Session:
     def __init__(self, cluster: ClusterInfo,
                  conf: Optional[SchedulerConfiguration] = None,
-                 device="cuda"):
-        """``device``: where the allocate cycle runs — the card by default,
-        ``"cpu"`` for the plain PyTorch versions of the kernels."""
+                 now: Optional[float] = None, device="cuda"):
+        """``now``: the cycle's clock (the sla plugin's waiting times), the
+        wall clock by default. ``device``: where the passes run — the card
+        by default, ``"cpu"`` for the plain PyTorch versions of the
+        kernels."""
         from ..plugins.factory import build_plugin
         self.cluster = cluster
         self.conf = conf or parse_conf()
+        self.now = now if now is not None else time.time()
         self.device = device
         self.plugins = [build_plugin(opt) for tier in self.conf.tiers
                         for opt in tier.plugins]
@@ -82,7 +92,9 @@ class Session:
         self.pipelined: Dict[str, str] = {}     # task uid -> node name
         self.conditions: Dict[str, str] = {}    # job uid -> condition type
         self.phase_updates: Dict[str, object] = {}  # job uid -> new PG phase
+        self.last_enqueue = None        # bool[J] admitted by the last enqueue
         self.last_allocate = None
+        self.last_backfill = None       # (task_node, placed) of the last one
         self.stats: Dict[str, float] = {}
 
     # ------------------------------------------------------------- packing
@@ -265,6 +277,26 @@ class Session:
                                                  np.float32)
         return extras
 
+    def enqueue_config(self) -> EnqueueConfig:
+        gates: Dict[str, object] = {}
+        for p in self.plugins:
+            gates.update(p.enqueue_gates(self))
+        return EnqueueConfig(
+            enable_proportion_gate=bool(gates.get("enable_proportion_gate",
+                                                  False)),
+            enable_overcommit_gate=bool(gates.get("enable_overcommit_gate",
+                                                  False)),
+            overcommit_factor=float(gates.get("overcommit_factor", 1.2)))
+
+    def sla_waiting_flags(self) -> np.ndarray:
+        J = np.asarray(self.snap.jobs.valid).shape[0]
+        flags = np.zeros(J, bool)
+        for p in self.plugins:
+            f = p.sla_waiting(self)
+            if f is not None:
+                flags |= np.asarray(f, bool)
+        return flags
+
     def _derived_allocate_inputs(self):
         """(cfg, extras) exactly as the cycle consumes them:
         ops.allocate_scan.derive_batching picks the batching, and GPU-free
@@ -294,7 +326,48 @@ class Session:
                               getattr(self.conf, "sharding_devices", None),
                               devices=None if dev.type == "cuda" else [dev])
 
-    # --------------------------------------------------------- pass runner
+    # -------------------------------------------------------- pass runners
+    def run_enqueue(self) -> int:
+        """Run the enqueue pass; promote admitted jobs Pending -> Inqueue
+        and repack when any was. Returns the number admitted."""
+        t0 = time.perf_counter()
+        snap_d = to_device(self.snap, self.device)
+        flags = torch.from_numpy(self.sla_waiting_flags()).to(self.device)
+        admitted = make_enqueue_pass(self.enqueue_config())(snap_d, flags)
+        admitted = admitted.cpu().numpy()
+        self.stats["enqueue_ms"] = (time.perf_counter() - t0) * 1000
+        self.last_enqueue = admitted
+        count = 0
+        for uid, ji in self.maps.job_index.items():
+            if admitted[ji]:
+                self.cluster.jobs[uid].pod_group_phase = PodGroupPhase.INQUEUE
+                self.phase_updates[uid] = PodGroupPhase.INQUEUE
+                count += 1
+        if count:
+            self.repack()
+        return count
+
+    def run_backfill(self) -> int:
+        """Run the backfill pass on the session's snapshot and bind what
+        it placed. Returns the number bound. Like the reference, the
+        snapshot is the one packed before allocate: allocate's binds
+        change the cluster, not the packed arrays."""
+        t0 = time.perf_counter()
+        extras = self.allocate_extras()
+        snap_d = to_device(self.snap, self.device)
+        t_node, placed = make_backfill_pass()(
+            snap_d, torch.from_numpy(extras.task_or_group).to(self.device),
+            torch.from_numpy(extras.or_feasible).to(self.device))
+        t_node, placed = t_node.cpu().numpy(), placed.cpu().numpy()
+        self.stats["backfill_ms"] = (time.perf_counter() - t0) * 1000
+        self.last_backfill = (t_node, placed)
+        count = 0
+        uids = self.maps.task_uids
+        for ti in np.nonzero(placed)[0]:
+            self._bind_task(uids[ti], self.maps.node_names[int(t_node[ti])])
+            count += 1
+        return count
+
     def run_allocate(self):
         """Upload the snapshot to the session's device, run the allocate
         cycle, read the packed decisions back in one copy and apply them."""

@@ -7,7 +7,8 @@
 - :func:`make_dyn_inputs` and :data:`DYN_CASES`: the dynamic-key placer
   (``ops/dyn_placer.py``): gang discard and demotion, a zero-deserved queue
   that flips to overused on its first commit, drf with 3 namespaces, GPU
-  requests, the hdrf guard, a short pop budget and padded candidates.
+  requests, the hdrf guard, a short pop budget, padded candidates and
+  the sla deadline as an ordering key.
 - :func:`make_aff_inputs` and :data:`AFF_CASES`: the pod-affinity step of
   both (``aff=`` of make_inputs and make_dyn_inputs): the first-pod
   escape, own and symmetric required anti-affinity, negative preferred
@@ -244,6 +245,8 @@ def _initial_order(flags, d, J):
     if "hcols" in d:
         cols += list(d["hcols"])
     cols += [d["skeys"][si], d["skeys"][si + 1]]; si += 2
+    if flags["sla_job_order"]:
+        cols.append(d["skeys"][si]); si += 1
     cols.append(((d["rdy0"][0] + d["acount"][0] >= d["minav"][0])
                  & (d["minav"][0] > 0)).astype(np.float64))
     if flags["drf_job_order"]:
@@ -267,28 +270,34 @@ DYN_CASES = {
     "hdrf_guard": dict(drf_job_order=True, enable_hdrf=True, NH=4),
     "kmax_short": dict(drf_job_order=True, kmax=3),
     "padded_candidates": dict(drf_job_order=True, n_elig=3),
+    "sla_deadline": dict(drf_job_order=True, sla_job_order=True,
+                         deserved="finite"),
 }
 
 DYN_FLAGS = ("drf_job_order", "drf_ns_order", "enable_hdrf", "enable_gpu",
-             "enable_pod_affinity")
+             "enable_pod_affinity", "sla_job_order")
 
 
 def make_dyn_inputs(seed, C=4, KP=12, M=4, J=24, Q=3, S=2, N=40, R=2, G=2,
                     GR=2, P=3, NH=0, gpu=False, drf_job_order=False,
                     drf_ns_order=False, enable_hdrf=False, deserved="inf",
                     tight=False, big_gangs=False, releasing=False, kmax=None,
-                    n_elig=None, aff=None):
+                    n_elig=None, aff=None, sla_job_order=False):
     """(flags, flat numpy args in the dyn placer's order). Values sit on a
     0.25 grid (keys tie, capacity hits exact fits, every sum is exact);
     candidates are the C lexicographically smallest eligible jobs at the
     inputs' state, as the cycle chooses them. With ``aff`` (knobs of
     make_aff_inputs) the affinity arguments join, for a launch with
-    cfg.enable_pod_affinity (flagged in the returned flags)."""
+    cfg.enable_pod_affinity (flagged in the returned flags). With
+    ``sla_job_order`` the sla deadline is a static key after queue id and
+    -priority: +inf for most jobs, a few seconds before now for some, as
+    the sla plugin encodes it."""
     rng = np.random.RandomState(seed)
     CM = C * M
     flags = dict(drf_job_order=drf_job_order, drf_ns_order=drf_ns_order,
                  enable_hdrf=enable_hdrf, enable_gpu=gpu,
-                 enable_pod_affinity=aff is not None)
+                 enable_pod_affinity=aff is not None,
+                 sla_job_order=sla_job_order)
 
     def grid(*shape, lo=0.0, hi=8.0):
         return (rng.randint(int(lo * 4), int(hi * 4) + 1, size=shape)
@@ -341,6 +350,14 @@ def make_dyn_inputs(seed, C=4, KP=12, M=4, J=24, Q=3, S=2, N=40, R=2, G=2,
     if not drf_ns_order:
         skeys[0] = np.zeros(J, F32)              # ns_share[namespace]
     skeys[1 - int(drf_ns_order)] = ns.astype(F32)   # namespace id
+    if sla_job_order:
+        # queue id and -priority as the cycle makes them (one priority),
+        # so jobs of a queue tie up to the deadline that follows them,
+        # relative to now
+        skeys[2 - int(drf_ns_order)] = d["qid"][0].astype(F32)
+        skeys[3 - int(drf_ns_order)] = np.zeros(J, F32)
+        skeys.insert(4 - int(drf_ns_order), np.where(
+            rng.rand(J) < 0.3, grid(J, lo=-4.0, hi=0.0), np.inf))
     d["skeys"] = np.stack(skeys).astype(F32)
     if drf_ns_order:
         nsm = (np.arange(S)[:, None] == ns[None, :])

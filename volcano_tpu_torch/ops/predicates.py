@@ -1,10 +1,12 @@
 """Feasibility masks: one task signature against all nodes, vectorized
-(PyTorch port of ``volcano_tpu/ops/predicates.py:38-152``).
+(PyTorch port of ``volcano_tpu/ops/predicates.py:28-166``).
 
 Array form of the reference's predicate plugins (predicates.go:181-288
 wrapping the k8s NodeUnschedulable, NodeAffinity and TaintToleration
-filters). The capacity-dependent half (resource fit, pod slots, GPU card
-fit) lives in the round placer, which re-evaluates it after every commit.
+filters). Inside the allocate cycle the capacity-dependent half (resource
+fit, pod slots, GPU card fit) lives in the placers, which re-evaluate it
+after every commit; :func:`capacity_feasible` is that half, without GPU
+cards, for the backfill pass.
 """
 
 from __future__ import annotations
@@ -14,6 +16,30 @@ import torch
 from ..arrays.labels import (EFFECT_NO_EXECUTE, EFFECT_NO_SCHEDULE, TOL_EQUAL,
                              TOL_EXISTS_ALL, TOL_EXISTS_KEY)
 from ..arrays.schema import NodeArrays
+
+_EPS = 1e-5
+
+
+def resource_fit(resreq: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
+    """bool[N]: does ``resreq`` f32[R] fit into ``avail`` f32[N, R]
+    (Resource.LessEqual, resource_info.go:376-414)?"""
+    return (resreq[None, :] <= avail + _EPS).all(-1)
+
+
+def pod_count_fit(nodes: NodeArrays, extra=None) -> torch.Tensor:
+    """bool[N]: the node has pod slots left (predicates.go:213-230);
+    ``extra`` i32[N] adds in-cycle placements."""
+    count = nodes.pod_count if extra is None else nodes.pod_count + extra
+    return count < nodes.max_pods
+
+
+def capacity_feasible(nodes: NodeArrays, resreq: torch.Tensor,
+                      avail: torch.Tensor, extra_pods=None) -> torch.Tensor:
+    """bool[N]: resource fit and pod slots; AND it with a
+    ``template_masks`` row for the full predicate conjunction. (The
+    reference's optional single-card GPU fit has no caller outside the
+    placers, which carry their own.)"""
+    return pod_count_fit(nodes, extra_pods) & resource_fit(resreq, avail)
 
 
 def selector_match(selector: torch.Tensor,

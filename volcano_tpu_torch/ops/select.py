@@ -53,3 +53,21 @@ def tie_count(score: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
     masked = torch.where(feasible, score, torch.full_like(score, NEG))
     n = ((masked == masked.max()) & feasible).sum(dtype=torch.int32)
     return (n - 1).clamp_min(0)
+
+
+def sort_order(keys: Sequence[torch.Tensor],
+               mask: torch.Tensor) -> torch.Tensor:
+    """i32[n]: indices sorted lexicographically by ``keys`` (most
+    significant first, compared as float32), masked-out entries last.
+    Stable, so equal keys keep index order: stable sorts from the least
+    significant key to the most, then a stable sort that moves the
+    masked-out entries behind the rest (the reference's lexsort)."""
+    order = torch.arange(mask.shape[0], device=mask.device)
+    inf = torch.full((), float("inf"), dtype=torch.float32,
+                     device=mask.device)
+    for k in reversed(list(keys)):
+        k = torch.where(mask, k.to(torch.float32), inf)
+        order = order[torch.sort(k[order], stable=True).indices]
+    masked_last = torch.sort((~mask[order]).to(torch.uint8),
+                             stable=True).indices
+    return order[masked_last].to(torch.int32)

@@ -54,6 +54,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import launch_record
 from .round_placer import _EPS_FIT, MAX_R, NEG, _dyn_score, _weights, \
     check_layout
 
@@ -350,6 +351,7 @@ def shard_candidates_cuda(cfg, D: int, args) -> ShardCandidates:
         t.data_ptr() if t is not None else None
         for t in list(a) + [score, ints]])
     dims = dict(D=D, NL=N // D, R=R, G=G)
+    note_kernel_launch("shard_candidates", a, dims)
     ints_c = (ctypes.c_int * len(DIMS))(*[dims[k] for k in DIMS])
     weights = (ctypes.c_float * 4)(*_weights(cfg))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -368,9 +370,10 @@ def shard_candidates_plain_all(cfg, D: int, args) -> ShardCandidates:
     R, N = a.idle.shape
     G = a.gidle0.shape[0] if cfg.enable_gpu else 0
     GR = a.orfeas.shape[0]
-    outs = [shard_candidates_plain(cfg, N // D, R, G, GR,
-                                   shard_args_of(cfg, D, a, d))
-            for d in range(D)]
+    shard_args = [shard_args_of(cfg, D, a, d) for d in range(D)]
+    note_plain_launch("shard_candidates", a, D, shard_args)
+    outs = [shard_candidates_plain(cfg, N // D, R, G, GR, args)
+            for args in shard_args]
     col = [torch.cat([o[k].reshape(1) for o in outs]) for k in range(8)]
     return ShardCandidates(torch.stack([col[0], col[4]]),
                            torch.stack([col[1], col[5]]),
@@ -378,9 +381,32 @@ def shard_candidates_plain_all(cfg, D: int, args) -> ShardCandidates:
                            torch.stack([col[3], col[7]]))
 
 
+def note_kernel_launch(kernel: str, a, dims: dict, per_shard: int = 1) -> None:
+    """Record a CUDA launch from the ``D`` and ``NL`` it is handed, its
+    blocks reading each node-axis argument of ``a`` on their shard's rows
+    (``ops/launch_record.py``)."""
+    if launch_record.active():
+        widths = [getattr(a, f).shape[0] for f in NODE_FIELDS
+                  if getattr(a, f) is not None]
+        launch_record.note(kernel, dims["NL"], launch_record.shard_blocks(
+            widths, dims["D"], dims["NL"], per_shard))
+
+
+def note_plain_launch(kernel: str, a, D: int, shard_args,
+                      per_shard: int = 1) -> None:
+    """Record a plain-route launch from the node-axis slices each shard's
+    call is given (the last arguments of each of ``shard_args``)."""
+    if launch_record.active():
+        bases = [getattr(a, f) for f in NODE_FIELDS
+                 if getattr(a, f) is not None]
+        launch_record.note(kernel, a.idle.shape[1] // D, [
+            launch_record.view_block(args[-len(bases):], bases)
+            for args in shard_args for _ in range(per_shard)])
+
+
 def shard_candidates(cfg, D: int, args) -> ShardCandidates:
     """One attempt over D shards: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. The launch is recorded on both."""
     dev = args[0].device
     if dev.type == "cuda":
         return shard_candidates_cuda(cfg, D, args)

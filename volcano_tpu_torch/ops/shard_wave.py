@@ -201,8 +201,10 @@ def shard_wave_plain_all(cfg, D: int, C: int, args) -> WaveCandidates:
     W = a.req.shape[1]
     G = a.gidle0.shape[0] if cfg.enable_gpu else 0
     GR = a.orfeas.shape[0]
-    outs = [shard_wave_plain(cfg, N // D, R, G, GR, W, C,
-                             wave_args_of(cfg, D, a, d)) for d in range(D)]
+    shard_args = [wave_args_of(cfg, D, a, d) for d in range(D)]
+    sp.note_plain_launch("shard_wave", a, D, shard_args, per_shard=W)
+    outs = [shard_wave_plain(cfg, N // D, R, G, GR, W, C, args)
+            for args in shard_args]
 
     def cat(k):
         return torch.cat([o[k] for o in outs], 0)
@@ -279,6 +281,7 @@ def shard_wave_cuda(cfg, D: int, C: int, args) -> WaveCandidates:
         t.data_ptr() if t is not None else None
         for t in list(a) + [score, idx, count, ties]])
     dims = dict(D=D, NL=N // D, R=R, G=G, W=W, C=C)
+    sp.note_kernel_launch("shard_wave", a, dims, per_shard=W)
     ints_c = (ctypes.c_int * len(DIMS))(*[dims[k] for k in DIMS])
     weights = (ctypes.c_float * 4)(*_weights(cfg))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -292,7 +295,8 @@ def shard_wave_cuda(cfg, D: int, C: int, args) -> WaveCandidates:
 
 def shard_wave(cfg, D: int, C: int, args) -> WaveCandidates:
     """W attempts over D shards: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. The launch (a block a column and shard) is
+    recorded on both."""
     dev = args[0].device
     if dev.type == "cuda":
         return shard_wave_cuda(cfg, D, C, args)

@@ -16,18 +16,18 @@ from .drf import DRFPlugin
 from .gang import GangPlugin
 from .proportion import ProportionPlugin
 from .simple_plugins import (BinpackPlugin, ConformancePlugin,
-                             NodeOrderPlugin, PredicatesPlugin,
-                             PriorityPlugin)
+                             NodeOrderPlugin, OvercommitPlugin,
+                             PredicatesPlugin, PriorityPlugin, SLAPlugin)
 
 _REGISTRY: Dict[str, Type[Plugin]] = {}
 
 #: reference plugins still to port -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "tdm": "queue 1 item 5 (the other actions)",
-    "reservation": "queue 1 item 5 (the other actions)",
-    "task-topology": "queue 1 item 5 (the other actions)",
-    "overcommit": "queue 1 item 5 (the other actions)",
-    "sla": "queue 1 item 5 (the other actions)",
+    "tdm": "queue 1 item 5b (preempt, reclaim and the remaining plugins)",
+    "reservation": "queue 1 item 5b (preempt, reclaim and the remaining "
+                   "plugins)",
+    "task-topology": "queue 1 item 5b (preempt, reclaim and the remaining "
+                     "plugins)",
 }
 
 
@@ -54,5 +54,6 @@ def registered_plugins():
 
 
 for _cls in (PriorityPlugin, GangPlugin, ConformancePlugin, BinpackPlugin,
-             DRFPlugin, PredicatesPlugin, ProportionPlugin, NodeOrderPlugin):
+             DRFPlugin, PredicatesPlugin, ProportionPlugin, NodeOrderPlugin,
+             OvercommitPlugin, SLAPlugin):
     register_plugin_builder(_cls.name, _cls)
