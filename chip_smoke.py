@@ -10,9 +10,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    per source, all started together) and prints ptxas's report;
 3. round placer against its plain version: the arguments of the first 3
    kernel launches of the full-scale cycle, of a small snapshot with GPU
-   requests and of a gang that must be discarded go through the kernel and
-   through its plain PyTorch version on the card; every output must be
-   bitwise equal (tolerance 0);
+   requests and of a gang that must be discarded go through the kernel (a
+   thread-block cluster, at 8 and at 16 blocks) and through its plain
+   PyTorch version on the card; every output must be bitwise equal
+   (tolerance 0);
 4. static-key path: ``Session(_synthetic_cluster(10000, 6250, 16), gang +
    binpack).run_allocate()`` on the card, the repository's north-star size
    (10,000 nodes, 100,000 pending tasks); pack, cycle and apply are timed
@@ -22,8 +23,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
 5. sub-scale: at (1024, 640, 16) the kernel cycle and the plain cycle on the
    card give equal packed decisions, with fingerprint 60a8509ec33e772c;
 6. round placer time: CUDA events around launches at the main path's
-   shapes, beside the plain version's time and the least time the card
-   could take;
+   shapes, as clusters of 16 and of 8 blocks (the cycle's is
+   ``round_placer.CLUSTER``), beside the plain version's time and the
+   least time the card could take; and one cluster exchange alone (CUDA
+   events around a probe of 20,000), which times the attempts give the
+   design's latency floor;
 7. dynamic-key placer against its plain version, bitwise: the first 3
    launches of check B's cycle, and small built inputs for a gang discard
    and demotion, a zero-deserved queue, drf with 3 namespaces, GPU
@@ -71,18 +75,22 @@ Phases, each of which fails the run (exit code 1) when it fails:
    pod affinity on, and the kernel cycle and the plain cycle on the card
    both give 07085317a58495b3, the JAX Session's;
 15. the pod-affinity step's own time: CUDA events around the round placer
-   at check E's shapes, and the dynamic-key placer at check F's, with pod
-   affinity on and off, beside the plain versions' and the bound;
+   (at its cycle's cluster size) at check E's shapes, and the dynamic-key
+   placer at check F's, with pod affinity on and off, beside the plain
+   versions' and the bound;
 16. the shard-local candidate search (kernel 4 of the reference) against
-   its plain version, all 8 outputs bitwise: the first 64 launches of
-   check G's cycle, and small built inputs (``ops/dyn_cases.py``
+   its plain version, all 8 per-shard outputs and the combined triple
+   (against ``combine`` of the plain version) bitwise: the first 64
+   launches of check G's cycle, and small built inputs (``ops/dyn_cases.py``
    SHARD_CASES) at 1 and 4 shards, with GPU cards and without, ties planted
-   across shards and shards with no feasible row;
+   across shards and shards with no feasible row, at each of the grid's
+   four block shapes;
 17. check G, the sharded path at the north star: ``Session(
    _synthetic_cluster(10000, 6250, 16), gang + binpack, sharding:
    true).run_allocate()`` on the one card (a mesh of one shard): one pop and
    one attempt at a time; the counts are set to 0 just before and read
-   just after, and the candidate kernel must have launched; fingerprint
+   just after, and the candidate kernel must have launched, and
+   ``shard_placer.combine`` never (the kernel combines); fingerprint
    f61d52ccc18b1e69 and 100,000 binds;
 18. check H: ``make_sharded_allocate`` on a 4-shard virtual mesh of the
    card: ``_synthetic_cluster(1024, 256, 16)`` under
@@ -91,9 +99,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
    and as a plain cycle on the card (the plain version in place of the
    kernel) at 4 shards gives the same decisions (the shipped conf on
    4 shards runs in check J, on the wave path);
-19. the candidate kernel's time: CUDA events around launches at check G's
-   shapes (1 shard of 10,240 rows) and at 4 shards of 2,560, beside the
-   plain version's and the bound;
+19. the candidate kernel's time: device time per launch in a
+   ``torch.profiler`` trace at check G's shapes (1 shard of 10,240 rows)
+   for each block shape of its grid (128 or 256 threads, one or two rows a
+   thread: the blocks B and rows ROWS are printed) and at 4 shards of
+   2,560, beside the plain version's and the bound; the combined triple of
+   check G's first attempt against ``combine`` of the plain version;
 20. the wide candidate search (kernel 5 of the reference) against its plain
    version, all 8 outputs bitwise: the first 32 launches of check I's cycle,
    and small built inputs (``ops/dyn_cases.py`` WAVE_CASES) at 1 and 4
@@ -349,21 +360,35 @@ def record_launches(ssn, keep, stop_after=None, dyn=False, inputs=None):
     return rec.calls
 
 
-def compare_kernel_plain(calls):
-    """Max |kernel - plain| over every output of every recorded launch;
-    raises unless all outputs are bitwise equal."""
+def bitwise_equal(a, b):
+    """Same dtype, shape and bits (float32 compared as its int32 bits)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def compare_kernel_plain(calls, cbs=(8, 16)):
+    """Max |kernel - plain| over every output of every recorded launch, the
+    kernel as a cluster of each of ``cbs`` blocks; raises unless all
+    outputs are bitwise equal."""
     import torch
 
     from volcano_tpu_torch.ops import round_placer as rp
     worst = 0.0
     for cfg, K, M, args in calls:
-        got = rp.round_place_cuda(cfg, K, M, args)
         want = rp.round_place_plain(cfg, K, M, args)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            worst = max(worst, float((g.double() - w.double()).abs().max()))
-            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-                raise AssertionError("kernel and plain version differ")
+        for cb in cbs:
+            got = rp.round_place_cuda(cfg, K, M, args, cb=cb)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                worst = max(worst,
+                            float((g.double() - w.double()).abs().max()))
+                if not bitwise_equal(g, w):
+                    raise AssertionError(f"kernel (CB={cb}) and plain "
+                                         f"version differ")
     return worst
 
 
@@ -429,22 +454,24 @@ def ops_per_node(cfg, R, G):
     return ops
 
 
-def time_kernel(call):
-    """Kernel ms per launch (CUDA events), plain version ms per call, and
-    the least time for the same work on this card."""
+def time_kernel(call, cb=None):
+    """Kernel ms per launch (CUDA events) as a cluster of ``cb`` blocks
+    (the cycle's, ``round_placer.CLUSTER``, when not given), plain version
+    ms per call, and the least time for the same work on this card."""
     import torch
 
     from volcano_tpu_torch.ops import round_placer as rp
     cfg, K, M, args = call
+    cb = rp.CLUSTER if cb is None else cb
     for _ in range(3):
-        rp.round_place_cuda(cfg, K, M, args)
+        rp.round_place_cuda(cfg, K, M, args, cb=cb)
     torch.cuda.synchronize()
     reps = 50
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        out = rp.round_place_cuda(cfg, K, M, args)
+        out = rp.round_place_cuda(cfg, K, M, args, cb=cb)
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
@@ -464,10 +491,32 @@ def time_kernel(call):
     nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(out))
     ops = attempts * N * ops_per_node(cfg, R, G)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+    return dict(cb=cb, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 attempts=attempts, bytes=nbytes, ops=ops,
                 stats={k: v / plain_reps for k, v in stats.items()})
+
+
+def time_exchange(cb, iters=20000):
+    """Microseconds of one cluster exchange of ``cb`` blocks alone (write a
+    slot, one cluster barrier, read the cb slots, merge): CUDA events
+    around a probe of ``iters`` exchanges, less a probe of one."""
+    import torch
+
+    from volcano_tpu_torch.ops import round_placer as rp
+    ms = {}
+    for n in (1, iters, 1, iters):
+        rp.exchange_probe_cuda(cb, n, "cuda")
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rp.exchange_probe_cuda(cb, n, "cuda")
+        end.record()
+        torch.cuda.synchronize()
+        ms[n] = min(ms.get(n, float("inf")), start.elapsed_time(end))
+    return (ms[iters] - ms[1]) * 1000 / (iters - 1)
 
 
 def compare_dyn_kernel_plain(calls):
@@ -714,7 +763,8 @@ def aff_step_time(call, dyn=False):
     ops = N * (3 * st.get("aff_rows", 0) + 8 * st["attempts"]
                + 2 * st.get("aff_commit_rows", 0))
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(ms=on["ms"] - off["ms"], ms_on=on["ms"], ms_off=off["ms"],
+    return dict(cb=on.get("cb"), ms=on["ms"] - off["ms"], ms_on=on["ms"],
+                ms_off=off["ms"],
                 plain_ms=on["plain_ms"] - off["plain_ms"],
                 plain_ms_on=on["plain_ms"], plain_ms_off=off["plain_ms"],
                 bound_ms=max(t_bytes, t_ops),
@@ -785,29 +835,42 @@ def shard_built_calls():
     return calls
 
 
-def compare_shard_plain(calls):
-    """Max |kernel - plain| over the 8 outputs of every launch; raises
-    unless all are bitwise equal."""
+#: the candidate kernel's block shapes: threads, rows a thread
+GEOMETRIES = ((128, 1), (128, 2), (256, 1), (256, 2))
+
+
+def compare_shard_plain(calls, geometries=(None,)):
+    """Max |kernel - plain| over the 8 per-shard outputs and the combined
+    triple (against ``combine`` of the plain version) of every launch, at
+    each of ``geometries`` (None: the module's); raises unless all are
+    bitwise equal."""
     import torch
 
     from volcano_tpu_torch.ops import shard_placer as sp
     worst = 0.0
     for cfg, D, args in calls:
-        got = sp.shard_candidates_cuda(cfg, D, args)
-        want = sp.shard_candidates_plain_all(cfg, D, args)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            worst = max(worst, float((g.double() - w.double()).abs().max()))
-            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-                raise AssertionError("shard kernel and plain version differ")
+        plain = sp.shard_candidates_plain_all(cfg, D, args)
+        want = list(plain[:4]) + list(sp.combine(
+            plain, args[-1].shape[1]))
+        for geometry in geometries:
+            got = sp.shard_candidates_cuda(cfg, D, args,
+                                           *(geometry or (None, None)))
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                worst = max(worst,
+                            float((g.double() - w.double()).abs().max()))
+                if not bitwise_equal(g, w):
+                    raise AssertionError(f"shard kernel ({geometry}) and "
+                                         f"plain version differ")
     return worst
 
 
-def time_shard_kernel(call):
-    """Candidate kernel ms per launch, plain version ms per call, and the
-    least time for the same work on this card: the bytes of the rows one
-    attempt reads (shard_placer.bound_bytes) against the float32
-    operations of one attempt on each row.
+def time_shard_kernel(call, geometry=None):
+    """Candidate kernel ms per launch at block shape ``geometry`` (threads,
+    rows a thread; the module's when not given), plain version ms per
+    call, and the least time for the same work on this card: the bytes of
+    the rows one attempt reads (shard_placer.bound_bytes) against the
+    float32 operations of one attempt on each row.
 
     The wrapper's host work per launch (argument checks, the pointer
     array) takes longer than the kernel, so CUDA events around a run of
@@ -819,8 +882,9 @@ def time_shard_kernel(call):
 
     from volcano_tpu_torch.ops import shard_placer as sp
     cfg, D, args = call
+    threads, rpt = geometry or (sp.THREADS, sp.ROWS_PER_THREAD)
     for _ in range(3):
-        sp.shard_candidates_cuda(cfg, D, args)
+        sp.shard_candidates_cuda(cfg, D, args, threads, rpt)
     torch.cuda.synchronize()
     reps = 200
     start = torch.cuda.Event(enable_timing=True)
@@ -828,7 +892,7 @@ def time_shard_kernel(call):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(reps):
-            sp.shard_candidates_cuda(cfg, D, args)
+            sp.shard_candidates_cuda(cfg, D, args, threads, rpt)
         end.record()
         torch.cuda.synchronize()
     events_ms = start.elapsed_time(end) / reps
@@ -854,7 +918,9 @@ def time_shard_kernel(call):
     nbytes = sp.bound_bytes(cfg, N, R, G)
     ops = N * ops_per_node(cfg, R, G)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(D=D, NL=N // D, ms=ms, events_ms=events_ms,
+    rows = threads * rpt
+    return dict(D=D, NL=N // D, threads=threads, ROWS=rows,
+                B=sp.row_blocks(N // D, rows), ms=ms, events_ms=events_ms,
                 plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1109,7 +1175,7 @@ def main():
                "apply_ms": ssn.stats["apply_ms"],
                "run_allocate_ms": session_ms,
                "binds": len(ssn.binds), "launches": launches,
-               "fingerprint": sha}
+               "cluster_blocks": rp.CLUSTER, "fingerprint": sha}
         log(json.dumps(out))
         assert launches > 0, "the main path launched no kernel"
         assert sha == FULL_SHA, f"fingerprint {sha} != {FULL_SHA}"
@@ -1145,8 +1211,21 @@ def main():
     # ---- 6. kernel time at the main path's shapes -----------------------
     clock.lap('6 round_time')
     try:
-        t = time_kernel(full_calls[0])
-        log(json.dumps({"phase": "kernel_time", **t}))
+        times = {}
+        for cb in (16, 8, 16, 8):
+            t = time_kernel(full_calls[0], cb)
+            log(json.dumps({"phase": "kernel_time", **t}))
+            times.setdefault(cb, []).append(t)
+        exchange_us = {cb: time_exchange(cb) for cb in (16, 8)}
+        for cb, runs in times.items():
+            attempts = runs[0]["attempts"]
+            log(json.dumps({
+                "phase": "kernel_cluster", "cb": cb,
+                "ms_runs": [r["ms"] for r in runs],
+                "exchange_us": exchange_us[cb], "attempts": attempts,
+                "latency_floor_ms": attempts * exchange_us[cb] / 1000,
+                "bound_ms": runs[0]["bound_ms"]}))
+        t = min(times[rp.CLUSTER], key=lambda r: r["ms"])
         kernels = [{
             "name": "round_placer", "route": "cuda",
             "source": "volcano_tpu_torch/csrc/round_placer.cu",
@@ -1457,7 +1536,8 @@ def main():
         g_calls = record_shard_launches(ssn_g, keep=64, stop_after=64)
         assert len(g_calls) == 64, "check G's cycle made under 64 launches"
         built_s = shard_built_calls()
-        shard_err = compare_shard_plain(g_calls + built_s)
+        shard_err = max(compare_shard_plain(g_calls),
+                        compare_shard_plain(built_s, GEOMETRIES))
         log(json.dumps({"phase": "shard_vs_plain", "launches_compared":
                         len(g_calls + built_s), "max_abs_err": shard_err}))
     except Exception as e:
@@ -1467,10 +1547,16 @@ def main():
     clock.lap("17 check_G")
     try:
         zero_shard_counts()
-        t0 = time.perf_counter()
-        ssn_g.run_allocate()
-        session_g_ms = (time.perf_counter() - t0) * 1000
-        counts_g = shard_counts()
+        combines = []
+        plain_combine = sp.combine
+        sp.combine = lambda *a: combines.append(1) or plain_combine(*a)
+        try:
+            t0 = time.perf_counter()
+            ssn_g.run_allocate()
+            session_g_ms = (time.perf_counter() - t0) * 1000
+        finally:
+            sp.combine = plain_combine
+        counts_g = dict(shard_counts(), combine_calls=len(combines))
         res = ssn_g.last_allocate
         sha = fingerprint(res.task_node, res.task_mode)
         log(json.dumps({"phase": "check_G", "nodes": FULL[0],
@@ -1483,6 +1569,7 @@ def main():
                         "binds": len(ssn_g.binds), **counts_g,
                         "fingerprint": sha}))
         assert counts_g["launches"] > 0, "check G launched no shard kernel"
+        assert not combines, "the CUDA route called shard_placer.combine"
         assert sha == FULL_SHA, f"fingerprint {sha} != {FULL_SHA}"
         assert len(ssn_g.binds) == FULL[1] * FULL[2], len(ssn_g.binds)
     except Exception as e:
@@ -1521,7 +1608,7 @@ def main():
         t0 = time.perf_counter()
         p_res = make_allocate_cycle(
             cfg_h, mesh=NodeMesh(("cuda",) * 4),
-            shard_placer=sp.shard_candidates_plain_all)(s_d, e_d)
+            shard_placer=sp.shard_candidates_plain_combined)(s_d, e_d)
         p_packed = p_res.packed_decisions().cpu()
         p_ms = (time.perf_counter() - t0) * 1000
         log(json.dumps({"phase": "check_H", "binpack_4_shards": out_h[4],
@@ -1540,11 +1627,25 @@ def main():
     # ---- 19. the candidate kernel's time ------------------------------
     clock.lap("19 shard_time")
     try:
-        t1 = time_shard_kernel(g_calls[0])
         cfg_g, _, args_g = g_calls[0]
-        t4 = time_shard_kernel((cfg_g, 4, args_g))
-        for t in (t1, t4):
+        got = sp.shard_candidates_cuda(cfg_g, 1, args_g)
+        plain = sp.shard_candidates_plain_all(cfg_g, 1, args_g)
+        triple = sp.combine(plain, args_g[-1].shape[1])
+        assert all(bitwise_equal(g, w) for g, w in zip(got[4:], triple)), \
+            "the kernel's combined triple differs from combine"
+        log(json.dumps({"phase": "shard_combined", "best_idx":
+                        got.best_idx.tolist(), "best_found":
+                        got.best_found.tolist(), "best_ties":
+                        got.best_ties.tolist()}))
+        by_shape = {}
+        for geometry in GEOMETRIES + tuple(reversed(GEOMETRIES)):
+            t = time_shard_kernel(g_calls[0], geometry)
             log(json.dumps({"phase": "shard_time", **t}))
+            by_shape.setdefault(geometry, []).append(t)
+        t1 = min(by_shape[(sp.THREADS, sp.ROWS_PER_THREAD)],
+                 key=lambda r: r["ms"])
+        t4 = time_shard_kernel((cfg_g, 4, args_g))
+        log(json.dumps({"phase": "shard_time", **t4}))
         kernels.append({
             "name": "shard_candidates", "route": "cuda",
             "source": "volcano_tpu_torch/csrc/shard_candidates.cu",

@@ -16,8 +16,9 @@ preferred affinity) under gang + predicates + binpack: the static-key path
 with the pod-affinity step in the round placer. The ``sharded`` cell is
 ``chip_smoke.py``'s check G: the north-star cluster under gang + binpack
 with ``sharding: true``, the sharded scan path (one pop and one attempt at
-a time, each attempt one launch of the shard-local candidate kernel); its
-numbers are per pop and per attempt, and ``--window`` counts attempts. The
+a time, each attempt one launch of the shard-local candidate kernel, whose
+last block also combines the shards); its numbers are per pop and per
+attempt, and ``--window`` counts attempts. The
 ``wave`` cell is ``chip_smoke.py``'s check I: the north-star cluster under
 ``chip_smoke.wave_conf`` (gang + nodeorder, least-requested and balanced
 at 1, no binpack) with ``sharding: true`` and ``wave_width: 8``, the
@@ -38,7 +39,8 @@ the kernels, then:
    host time of the cycle's steps (``host_ms_by_step``: each of
    ``namespace_shares``, ``drf_job_shares``, ``hdrf_level_keys``,
    ``lex_argmin`` and ``gather_slot_tables`` in ``ops/allocate_scan.py``,
-   the shard placer's ``combine``, the wave walk's steps (``wave_sweep``,
+   the shard placer's ``combine`` (no call on the card, where kernel 4
+   combines; the plain route's), the wave walk's steps (``wave_sweep``,
    ``wave_combine``, ``wave_fast_ok`` with its readback,
    ``wave_commit_fast``, ``wave_commit_slow``) and the placer calls,
    wrapped in a profiler span; the rest of a round is the loop's own

@@ -1,10 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-round placer (with and without its pod-affinity step), the pod-affinity
-step in the dynamic-key placer, the segmented sum, the shard-local
-candidate search and its wide (wavefront) form, and kernel 6 (graphcheck's
-planted shard gather); the sharded cycle's waits on the card, with and
-without waves; and sort_order, enqueue and backfill on the card against
-the CPU.
+round placer (with and without its pod-affinity step, as clusters of 8 and
+16 blocks), the pod-affinity step in the dynamic-key placer, the segmented
+sum, the shard-local candidate search (per-shard outputs and the combined
+triple, at every block shape of its grid) and its wide (wavefront) form,
+and kernel 6 (graphcheck's planted shard gather); the sharded cycle's
+waits on the card, with and without waves; and sort_order, enqueue and
+backfill on the card against the CPU.
 
 Imports nothing of JAX, so it runs on a machine with a card and no JAX:
 
@@ -65,13 +66,97 @@ def test_kernel_rejects_wrong_layout():
         rp.round_place_cuda(cfg, 8, 4, t)
 
 
-# ---- the pod-affinity step in both placers (kernel 2) -----------------------
-
 def assert_same(got, want):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+# ---- kernel 1 as a thread-block cluster --------------------------------------
+
+#: round placer inputs for the cluster: a ragged last slice (N = 200 is 13
+#: nodes a block at 16 blocks, the last 5), fewer nodes than blocks, the
+#: best score planted in every block's slice, gangs discarded after
+#: placements in several blocks, GPU cards
+CLUSTER_CASES = {
+    "ragged_last_slice": dict(gpu=True, N=200, M=6),
+    "fewer_nodes_than_blocks": dict(gpu=True, N=5),
+    "ties_across_slices": dict(gpu=False, N=96, ties=True),
+    "gang_discard": dict(gpu=True, tight=True, big_gangs=True),
+    "gpu_cards": dict(gpu=True, N=300),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+def test_cluster_kernel_matches_plain_bitwise(case, cb):
+    need_card()
+    kw = dict(CLUSTER_CASES[case])
+    K, M = kw.get("K", 8), kw.get("M", 4)
+    cfg = AllocateConfig(enable_gpu=kw["gpu"], **PLACER_WEIGHTS)
+    for seed in (0, 1, 2):
+        t = [torch.from_numpy(a).cuda() for a in make_inputs(seed, **kw)]
+        want = rp.round_place_plain(cfg, K, M, t)
+        before = rp.launches
+        got = rp.round_place_cuda(cfg, K, M, t, cb=cb)
+        torch.cuda.synchronize()
+        assert rp.launches == before + 1
+        assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("case", sorted(AFF_CASES))
+def test_cluster_affinity_kernel_matches_plain_bitwise(case, cb):
+    """The affinity step's second exchange, the totals' replicas and the
+    take-back of a discarded gang's rows, block by block."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=True, enable_pod_affinity=True,
+                         pod_affinity_weight=1.5, **PLACER_WEIGHTS)
+    for seed in (0, 1):
+        t = [torch.from_numpy(a).cuda() for a in make_inputs(
+            seed, gpu=True, N=200, aff=AFF_CASES[case],
+            **aff_placer_knobs(case))]
+        want = rp.round_place_plain(cfg, 8, 4, t)
+        got = rp.round_place_cuda(cfg, 8, 4, t, cb=cb)
+        torch.cuda.synchronize()
+        assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_cluster_launch_refuses_what_it_cannot_run():
+    """No fallback: a cluster past 16 blocks, or more shared memory a
+    block than the card has, raises before anything is launched."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=False, **PLACER_WEIGHTS)
+    t = [torch.from_numpy(a).cuda() for a in make_inputs(0, gpu=False)]
+    before = rp.launches
+    with pytest.raises(ValueError, match="clusters"):
+        rp.round_place_cuda(cfg, 8, 4, t, cb=17)
+    t = [torch.from_numpy(a).cuda() for a in make_inputs(
+        0, gpu=False, N=rp.MAX_SHARED)]
+    with pytest.raises(ValueError, match="shared memory"):
+        rp.round_place_cuda(cfg, 8, 4, t, cb=1)
+    assert rp.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cb", [1, 8, 16])
+def test_exchange_probe_merges_every_block(cb):
+    """The exchange alone: after the last of 37 exchanges block 0 holds
+    the lowest rank at the highest score the blocks wrote."""
+    need_card()
+    iters = 37
+    scores = [(r * 7 + iters - 1) % 5 for r in range(cb)]
+    out = rp.exchange_probe_cuda(cb, iters, "cuda")
+    assert int(out) == scores.index(max(scores))
+
+
+# ---- the pod-affinity step in both placers (kernel 2) -----------------------
 
 
 @pytest.mark.cuda
@@ -212,12 +297,64 @@ def test_shard_kernel_matches_plain_bitwise(case, D, gpu):
     for seed in (0, 1):
         t = [torch.from_numpy(a).cuda() for a in
              make_shard_inputs(seed, D=D, gpu=gpu, **SHARD_CASES[case])]
-        want = sp.shard_candidates_plain_all(cfg, D, t)
+        want = sp.shard_candidates_plain_combined(cfg, D, t)
         before = sp.launches
         got = sp.shard_candidates(cfg, D, t)
         torch.cuda.synchronize()
         assert sp.launches == before + 1
         assert_same(got, want)
+
+
+#: the grid's block shapes: threads, rows a thread
+GEOMETRIES = [(128, 1), (128, 2), (256, 1), (256, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("case", ["mixed", "ties_across_shards",
+                                  "infeasible_shard", "nothing_feasible"])
+def test_split_row_grid_matches_plain_bitwise(case, D, geometry):
+    """Shards of 300 rows, a multiple of no block's rows: several blocks a
+    shard, the last one short. The per-shard outputs against the plain
+    version and the combined triple against ``combine`` of it; with ties
+    the best recurs across blocks and shards and the raw counts add up."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=True, **PLACER_WEIGHTS)
+    NL = 300
+    for seed in (0, 1):
+        t = [torch.from_numpy(a).cuda() for a in make_shard_inputs(
+            seed, D=D, NL=NL, gpu=True, **SHARD_CASES[case])]
+        want = sp.shard_candidates_plain_all(cfg, D, t)
+        got = sp.shard_candidates_cuda(cfg, D, t, *geometry)
+        torch.cuda.synchronize()
+        assert_same(got[:4], want[:4])
+        assert_same(got[4:], sp.combine(want, D * NL))
+        if case == "nothing_feasible":
+            assert not got.best_found.any() and got.best_idx.sum() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_split_row_grid_sums_ties_across_blocks_and_shards(D, geometry):
+    """Every 7th row the same node (no preferred node, no volume pin): the
+    best score recurs in every block and shard, and the raw tie count is
+    the sum over all of them."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=True, **PLACER_WEIGHTS)
+    NL = 300
+    t = [torch.from_numpy(a) for a in make_shard_inputs(0, D=D, NL=NL,
+                                                        gpu=True)]
+    t[1][0, 0] = t[1][0, 3] = -1
+    src = torch.arange(D * NL) % 7
+    t = [x.cuda() for x in t[:3]] + [x[:, src].contiguous().cuda()
+                                     for x in t[3:]]
+    want = sp.shard_candidates_plain_all(cfg, D, t)
+    got = sp.shard_candidates_cuda(cfg, D, t, *geometry)
+    assert_same(got[:4], want[:4])
+    assert_same(got[4:], sp.combine(want, D * NL))
+    assert int(got.best_ties[0]) >= D * NL // 7
 
 
 @pytest.mark.cuda
@@ -229,8 +366,38 @@ def test_shard_kernel_at_full_width():
     for D, NL in ((1, 10240), (4, 2560)):
         t = [torch.from_numpy(a).cuda() for a in
              make_shard_inputs(3, D=D, NL=NL, ties=True)]
-        assert_same(sp.shard_candidates(cfg, D, t),
-                    sp.shard_candidates_plain_all(cfg, D, t))
+        for geometry in GEOMETRIES:
+            assert_same(sp.shard_candidates_cuda(cfg, D, t, *geometry),
+                        sp.shard_candidates_plain_combined(cfg, D, t))
+
+
+@pytest.mark.cuda
+def test_sharded_cycle_on_the_card_runs_no_combine(monkeypatch):
+    """The kernel's last block combines the shards: the CUDA route of the
+    sharded cycle never calls ``combine``, and gives the plain route's
+    decisions."""
+    need_card()
+    from volcano_tpu_torch.arrays import pack, to_device
+    from volcano_tpu_torch.ops.allocate_scan import (AllocateExtras,
+                                                     make_allocate_cycle)
+    from volcano_tpu_torch.parallel import NodeMesh
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    snap, _ = pack(_synthetic_cluster(256, 24, 8))
+    s = to_device(snap, "cuda")
+    e = to_device(AllocateExtras.neutral(snap), "cuda")
+    cfg = AllocateConfig(binpack_weight=1.0, enable_gpu=False)
+    mesh = NodeMesh(("cuda",) * 4)
+    want = make_allocate_cycle(
+        cfg, mesh=mesh, shard_placer=sp.shard_candidates_plain_combined)(
+        s, e).packed_decisions().cpu()
+    calls = []
+    combine = sp.combine
+    monkeypatch.setattr(sp, "combine",
+                        lambda *a: calls.append(1) or combine(*a))
+    before = sp.launches
+    got = make_allocate_cycle(cfg, mesh=mesh)(s, e).packed_decisions().cpu()
+    assert sp.launches > before and calls == []
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

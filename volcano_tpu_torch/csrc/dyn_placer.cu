@@ -399,7 +399,8 @@ __global__ void __launch_bounds__(BLOCK)
         if (placed) {
           node = do_alloc ? pk.node_now : pk.node_fut;
           mode = do_alloc ? MODE_ALLOCATED : MODE_PIPELINED;
-          card = commit(e, t, node, do_alloc, save, s_nsave++);
+          card = commit(e, global_view(e), t, node, do_alloc, save,
+                        s_nsave++);
         }
         a.node_o[s] = node;
         a.mode_o[s] = mode;
@@ -435,7 +436,7 @@ __global__ void __launch_bounds__(BLOCK)
       const int jstar = p_jstar;
       const bool ready = s_ready, pipelined = s_pipelined, keep = s_keep;
       if (!keep) {
-        restore(e, save, s_nsave);
+        restore(e, global_view(e), save, s_nsave);
         for (int s = lo; s < hi; ++s) {
           a.node_o[s] = -1;
           a.mode_o[s] = MODE_NONE;

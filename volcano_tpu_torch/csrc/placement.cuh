@@ -1,5 +1,5 @@
 // The placement step shared by the round placers: one task slot placed on
-// the node axis by one thread block.
+// the node axis, by one thread block or by one thread-block cluster.
 //
 // Port of volcano_tpu/ops/pallas_place.py `_make_attempt` (feasibility ->
 // score -> lowest-index argmax -> commit) and `_dyn_score`, used by
@@ -7,34 +7,56 @@
 // of its pod-affinity extension (`_read_aff_env`, `_aff_eval`,
 // `_aff_commit`, pallas_place.py:186-331). At the end, the row evaluation
 // of the shard-local kernels (`shard_row`), which shard_candidates.cu
-// (`_shard_cand_kernel`) and shard_wave.cu (`_shard_wave_kernel`) share.
+// (`_shard_cand_kernel`) and shard_wave.cu (`_shard_wave_kernel`) share,
+// and their candidate merge.
 //
-// - The node-axis state (idle, pipe [R, N], pods [1, N], GPU cards [G, N])
-//   lives in global memory (L2 at the sizes the cycle runs).
-// - block_pick: thread t evaluates the nodes i = t (mod BLOCK): feasibility
-//   on idle ("now") and on future idle, and the score. A block reduction
-//   finds, for each view, the highest masked score and the lowest node
-//   index at that score, the reference's tie-break.
-// - commit (thread 0 only): saves the chosen node's column, then takes the
-//   task's request from it and picks the lowest fitting GPU card.
-// - restore (thread 0 only): puts saved columns back, newest first, when a
+// - A node's row (node_eval): feasibility on idle ("now") and on future
+//   idle, and the score, read from the static maps in global memory and
+//   from the live state through a LiveView: the whole [R, N] state in
+//   global memory (kernel 3), or one cluster block's slice of it in shared
+//   memory (kernel 1).
+// - block_pick (kernel 3): thread t evaluates the nodes i = t (mod BLOCK);
+//   a block reduction finds, for each view, the highest masked score and
+//   the lowest node index at that score, the reference's tie-break.
+// - cluster_pick (kernel 1): each block of a cluster of CB blocks evaluates
+//   its own contiguous slice of the nodes with the same row code and
+//   reduces it to one (score, lowest index) per view and the views' "any
+//   feasible" flags; after one cluster barrier every block reads the CB
+//   partials through distributed shared memory and merges them. Max with
+//   the lowest index and OR are exact and order-free, so every block
+//   reaches the same pick, the one-block pick. The partials are
+//   double-buffered by the parity of the launch's exchange count, so one
+//   barrier an exchange is enough: a block can only overwrite a buffer
+//   after the next barrier, which every block passes only once it has read
+//   that buffer.
+// - commit (thread 0 of the block that owns the node): saves the chosen
+//   node's column, then takes the task's request from it and picks the
+//   lowest fitting GPU card.
+// - restore (thread 0): puts saved columns back, newest first, when a
 //   gang is discarded. Subtracting back would not do: (a - r) + r != a in
-//   float32.
+//   float32. Columns of different nodes are independent, so each cluster
+//   block restores the columns it saved and the result is the one-block
+//   kernel's.
 // - Pod affinity (AffEnv, when the cycle compiles it in): the live counts
-//   cnt [SK, N], tot [SK, 1] and anti [ETA, N] are global memory too.
-//   Each attempt first runs aff_eval: thread 0 lists the task's terms in
-//   shared memory (its required pairs, own anti terms, preferred pairs, and
-//   only the ETA / SEL rows the task matches: the rows it does not match
-//   add `false` or 0 * x, and every sum is integer-valued, so skipping them
-//   changes no bit), then one block pass computes each node's affinity mask
-//   and raw preferred score into a scratch row and reduces the raw score's
-//   max and min over the live nodes. block_pick, the second pass, ANDs the
-//   mask into both views and adds weight * the min-max normalised score
-//   last. aff_apply adds (or, on a gang discard, takes back) one placement's
-//   domain-membership rows, block-wide. The discard takes back instead of
-//   copying back: the counts are integer-valued float32 far below 2^24,
-//   so (c + 1) - 1 == c exactly, and an undo costs what its commit cost,
-//   where a copy-back would save SK x N + ETA x N floats every section.
+//   cnt [SK, N] and anti [ETA, N] are global memory (each cluster block
+//   reads and writes only its slice), tot [SK, 1] is global memory in
+//   kernel 3 and a replica in each cluster block's shared memory in kernel
+//   1 (every block applies the same integer-valued deltas to it). Each
+//   attempt first runs the affinity pass: thread 0 lists the task's terms
+//   in shared memory (its required pairs, own anti terms, preferred pairs,
+//   and only the ETA / SEL rows the task matches: the rows it does not
+//   match add `false` or 0 * x, and every sum is integer-valued, so
+//   skipping them changes no bit), then one pass computes each node's
+//   affinity mask and raw preferred score into a scratch row and reduces
+//   the raw score's max and min over the live nodes (in the cluster, a
+//   second exchange). The pick, the second pass, ANDs the mask into both
+//   views and adds weight * the min-max normalised score last. aff_apply
+//   adds (or, on a gang discard, takes back) one placement's
+//   domain-membership rows over a span of nodes. The discard takes back
+//   instead of copying back: the counts are integer-valued float32 far
+//   below 2^24, so (c + 1) - 1 == c exactly, and an undo costs what its
+//   commit cost, where a copy-back would save SK x N + ETA x N floats
+//   every section.
 //
 // Bit-exactness with the reference: build with --fmad=false and without
 // fast math, so no multiply-add is contracted and division and sqrt are
@@ -43,12 +65,19 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace placement {
 
+namespace cg = cooperative_groups;
+
 constexpr int BLOCK = 1024;
 constexpr int WARPS = BLOCK / 32;
+// threads of each block of the cluster kernel, and the largest cluster
+constexpr int CBLOCK = 512;
+constexpr int CWARPS = CBLOCK / 32;
+constexpr int MAX_CB = 16;
 constexpr int MAX_R = 8;
 constexpr int MODE_NONE = 0;
 constexpr int MODE_ALLOCATED = 1;
@@ -76,6 +105,24 @@ struct NodeEnv {
   int N, R, G, pipelining;
   float w_bin, w_least, w_most, w_bal;
 };
+
+// Where the live state of node i lies: row r of idle at idle[k(r, i)], and
+// so pipe, pods (row 0) and gpux. The whole [R, N] state in global memory
+// (ld = N, base = 0), or the slice [base, base + ld) of it in shared memory.
+struct LiveView {
+  float* idle;
+  float* pipe;
+  float* pods;
+  float* gpux;
+  int ld, base;
+  __device__ __forceinline__ int k(int r, int i) const {
+    return r * ld + (i - base);
+  }
+};
+
+__device__ __forceinline__ LiveView global_view(const NodeEnv& e) {
+  return {e.idle, e.pipe, e.pods, e.gpux, e.N, 0};
+}
 
 // per-slot rows of one launch, [.., S] with S slots
 struct SlotEnv {
@@ -117,14 +164,15 @@ __device__ __forceinline__ float clip01(float x) {
 }
 
 // pallas_place._dyn_score for node i, in the reference's operation order
-__device__ float dyn_score(const NodeEnv& e, int i, const float* rr) {
+__device__ float dyn_score(const NodeEnv& e, const LiveView& lv, int i,
+                          const float* rr) {
   const float EPS_DIV = static_cast<float>(1e-9);
   const float OVER = static_cast<float>(1.0 + 1e-6);
   const int N = e.N, R = e.R;
   float alloc[MAX_R], used[MAX_R];
   for (int r = 0; r < R; ++r) {
     alloc[r] = e.alloc[r * N + i];
-    used[r] = alloc[r] - e.idle[r * N + i];
+    used[r] = alloc[r] - lv.idle[lv.k(r, i)];
   }
   float score = 0.0f;
   if (e.w_bin != 0.0f) {
@@ -306,43 +354,63 @@ __device__ void aff_lists(const AffEnv& ae, int s, AffShared& as) {
     if (ae.sk_sel[k] >= 0 && ae.skm[k * S + s] > 0.0f) as.mine[as.nmine++] = k;
 }
 
-// Called by every thread: the first pass of an attempt. Writes each node's
-// affinity mask and raw preferred score to the scratch rows and leaves the
-// normalisation in `as` (pallas_place._aff_eval).
-__device__ void aff_eval(const AffEnv& ae, int N, int s, AffShared& as,
-                         float* red) {
-  const float BIG = static_cast<float>(3.4e38);
+// Node i's affinity mask (returned) and raw preferred score (`raw`) for the
+// task whose term lists `as` holds, against the live counts.
+__device__ __forceinline__ bool aff_node(const AffEnv& ae, const AffShared& as,
+                                         int N, int i, float& raw) {
+  bool ok = true;
+  for (int k = 0; k < as.nreq; ++k) {
+    const int sk = as.req[k];
+    const bool dom = ae.skdom[sk * N + i] >= 0;
+    ok = ok && dom && (ae.cnt[sk * N + i] > 0.0f || as.esc[k]);
+  }
+  for (int k = 0; k < as.nown; ++k)
+    ok = ok && !(ae.cnt[as.own_sk[k] * N + i] > 0.0f &&
+                 ae.eta_dom[as.own_e[k] * N + i] >= 0);
+  for (int k = 0; k < as.nsym; ++k) {
+    const int e = as.sym[k];
+    ok = ok && !(ae.anti_cnt[e * N + i] > 0.0f && ae.eta_dom[e * N + i] >= 0);
+  }
+  raw = 0.0f;
+  for (int p = 0; p < ae.PP; ++p) {
+    const int sk = as.pp_sk[p] > 0 ? as.pp_sk[p] : 0;
+    const float row = (as.pp_sk[p] >= 0 && ae.skdom[sk * N + i] >= 0)
+                          ? as.pp_w[p] * ae.cnt[sk * N + i]
+                          : 0.0f;
+    raw = p == 0 ? row : raw + row;
+  }
+  float st = 0.0f;
+  for (int k = 0; k < as.nsel; ++k)
+    st = st + as.sel_w[k] * ae.static_pref[as.sel[k] * N + i];
+  raw = raw + st;
+  return ok;
+}
+
+// Thread 0 only: the normalisation from the raw score's max and min over
+// the live nodes.
+__device__ __forceinline__ void aff_norm(AffShared& as, float mx, float mn) {
   const float EPS_DIV = static_cast<float>(1e-9);
+  const float span = mx - mn;
+  as.mn = mn;
+  as.q = 100.0f / fmaxf(span, EPS_DIV);
+  as.span_pos = span > 0.0f;
+}
+
+// Called by every thread: the first pass of an attempt over nodes lo + t,
+// lo + t + step, ... below hi. Writes each node's affinity mask and raw
+// preferred score to the scratch rows and reduces the raw score's max and
+// min over the live ones, through `red` [2 * WARPS], to warp 0's lane 0.
+__device__ void aff_pass(const AffEnv& ae, int N, const AffShared& as,
+                         float* red, int lo, int hi, int step, float& mx,
+                         float& mn) {
+  const float BIG = static_cast<float>(3.4e38);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) aff_lists(ae, s, as);
-  __syncthreads();
-  float mx = -BIG, mn = BIG;
-  for (int i = threadIdx.x; i < N; i += BLOCK) {
-    bool ok = true;
-    for (int k = 0; k < as.nreq; ++k) {
-      const int sk = as.req[k];
-      const bool dom = ae.skdom[sk * N + i] >= 0;
-      ok = ok && dom && (ae.cnt[sk * N + i] > 0.0f || as.esc[k]);
-    }
-    for (int k = 0; k < as.nown; ++k)
-      ok = ok && !(ae.cnt[as.own_sk[k] * N + i] > 0.0f &&
-                   ae.eta_dom[as.own_e[k] * N + i] >= 0);
-    for (int k = 0; k < as.nsym; ++k) {
-      const int e = as.sym[k];
-      ok = ok && !(ae.anti_cnt[e * N + i] > 0.0f && ae.eta_dom[e * N + i] >= 0);
-    }
-    float raw = 0.0f;
-    for (int p = 0; p < ae.PP; ++p) {
-      const int sk = as.pp_sk[p] > 0 ? as.pp_sk[p] : 0;
-      const float row = (as.pp_sk[p] >= 0 && ae.skdom[sk * N + i] >= 0)
-                            ? as.pp_w[p] * ae.cnt[sk * N + i]
-                            : 0.0f;
-      raw = p == 0 ? row : raw + row;
-    }
-    float st = 0.0f;
-    for (int k = 0; k < as.nsel; ++k)
-      st = st + as.sel_w[k] * ae.static_pref[as.sel[k] * N + i];
-    raw = raw + st;
+  const int nwarps = step / 32;
+  mx = -BIG;
+  mn = BIG;
+  for (int i = lo + tid; i < hi; i += step) {
+    float raw;
+    const bool ok = aff_node(ae, as, N, i, raw);
     ae.raw[i] = raw;
     ae.ok[i] = ok ? 1.0f : 0.0f;
     if (ae.live[i] > 0.0f) {
@@ -360,19 +428,25 @@ __device__ void aff_eval(const AffEnv& ae, int N, int s, AffShared& as,
   }
   __syncthreads();
   if (warp == 0) {
-    mx = red[lane];
-    mn = red[WARPS + lane];
+    mx = lane < nwarps ? red[lane] : -BIG;
+    mn = lane < nwarps ? red[WARPS + lane] : BIG;
     for (int off = 16; off > 0; off >>= 1) {
       mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, off));
       mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, off));
     }
-    if (lane == 0) {
-      const float span = mx - mn;
-      as.mn = mn;
-      as.q = 100.0f / fmaxf(span, EPS_DIV);
-      as.span_pos = span > 0.0f;
-    }
   }
+}
+
+// Called by every thread of the one-block kernels: the first pass of an
+// attempt over all N nodes; leaves the normalisation in `as`
+// (pallas_place._aff_eval).
+__device__ void aff_eval(const AffEnv& ae, int N, int s, AffShared& as,
+                         float* red) {
+  if (threadIdx.x == 0) aff_lists(ae, s, as);
+  __syncthreads();
+  float mx, mn;
+  aff_pass(ae, N, as, red, 0, N, BLOCK, mx, mn);
+  if (threadIdx.x == 0) aff_norm(as, mx, mn);
   __syncthreads();
 }
 
@@ -382,8 +456,13 @@ __device__ void aff_eval(const AffEnv& ae, int N, int s, AffShared& as,
 // reference's + 0.0 elsewhere changes no count (counts are never -0.0).
 // `listed`: the term lists in `as` are slot s's already (a commit right
 // after the slot's aff_eval).
+// The rows change over nodes lo + t, lo + t + step, ... below hi (the
+// whole axis in the one-block kernels, a cluster block's slice in kernel
+// 1); `ae.tot` (the block's replica in kernel 1) changes by `delta` too.
 __device__ void aff_apply(const AffEnv& ae, int N, int s, int node,
-                          float delta, AffShared& as, bool listed) {
+                          float delta, AffShared& as, bool listed, int lo = 0,
+                          int hi = -1, int step = BLOCK) {
+  if (hi < 0) hi = N;
   if (!listed) {
     if (threadIdx.x == 0) aff_lists(ae, s, as);
     __syncthreads();
@@ -394,7 +473,7 @@ __device__ void aff_apply(const AffEnv& ae, int N, int s, int node,
     const int d = dom[node];
     if (d < 0) continue;
     float* row = ae.cnt + sk * N;
-    for (int i = threadIdx.x; i < N; i += BLOCK)
+    for (int i = lo + threadIdx.x; i < hi; i += step)
       if (dom[i] == d) row[i] = row[i] + delta;
     if (threadIdx.x == 0) ae.tot[sk] = ae.tot[sk] + delta;
   }
@@ -404,7 +483,7 @@ __device__ void aff_apply(const AffEnv& ae, int N, int s, int node,
     const int d = dom[node];
     if (d < 0) continue;
     float* row = ae.anti_cnt + e * N;
-    for (int i = threadIdx.x; i < N; i += BLOCK)
+    for (int i = lo + threadIdx.x; i < hi; i += step)
       if (dom[i] == d) row[i] = row[i] + delta;
   }
   __syncthreads();
@@ -430,93 +509,250 @@ struct Pick {
   bool any_now, any_fut;
 };
 
-// Called by every thread of the block with the same task: the best node of
-// both views and whether any node is feasible in each. With `ae` (pod
-// affinity on), after aff_eval: the affinity mask joins both views and
-// weight * the normalised preferred score joins the score, last.
-__device__ Pick block_pick(const NodeEnv& e, const Task& t, bool is_tgt,
-                           PickShared& ps, const AffEnv* ae = nullptr,
-                           const AffShared* as = nullptr) {
+struct NodeEval {
+  bool now, fut;  // feasible on idle / on future idle
+  float score;    // NEG when neither
+};
+
+// Node i for task t: the row code of both picks, in the reference's order.
+// With `ae` (pod affinity on), after the affinity pass: its mask joins
+// both views and weight * the normalised preferred score joins the score,
+// last.
+__device__ __forceinline__ NodeEval node_eval(const NodeEnv& e,
+                                              const LiveView& lv,
+                                              const Task& t, bool is_tgt,
+                                              int i, const AffEnv* ae,
+                                              const AffShared* as) {
   const float EPS_FIT = static_cast<float>(1e-5);
   const float NEG = static_cast<float>(-1e30);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   const int N = e.N, R = e.R, G = e.G;
-  const bool gpu = G > 0;
   const float grm = t.gr - EPS_FIT;
+  bool sf = e.tstat[t.tmpl * N + i] > 0.0f;
+  sf = sf && !(e.blocknr[i] > 0.0f && !t.rev) && !(e.blockall[i] > 0.0f);
+  if (t.grp >= 0) sf = sf && e.orfeas[t.grp * N + i] > 0.0f;
+  sf = sf && t.volok && (t.voln < 0 || i == t.voln);
+  sf = sf && (!(e.locked[i] > 0.0f) || is_tgt);
+  bool shared = sf && (e.cnt[i] + lv.pods[lv.k(0, i)]) < e.maxp[i];
+  if (G > 0 && !(t.gr <= 0.0f)) {
+    bool any = false;
+    for (int g = 0; g < G; ++g)
+      any = any || (e.gidle0[g * N + i] - lv.gpux[lv.k(g, i)]) >= grm;
+    shared = shared && any;
+  }
+  bool fit_now = true, fit_fut = true;
+  for (int r = 0; r < R; ++r) {
+    const float idle_r = lv.idle[lv.k(r, i)];
+    const float fut_r =
+        fmaxf((idle_r + e.relmp[r * N + i]) - lv.pipe[lv.k(r, i)], 0.0f);
+    fit_now = fit_now && t.rr[r] <= idle_r + EPS_FIT;
+    fit_fut = fit_fut && t.rr[r] <= fut_r + EPS_FIT;
+  }
+  if (ae != nullptr) shared = shared && ae->ok[i] > 0.0f;
+  NodeEval ne{shared && fit_now, shared && fit_fut, NEG};
+  if (ne.now || ne.fut) {
+    float sc = dyn_score(e, lv, i, t.rr);
+    sc = sc + e.tscore[t.tmpl * N + i];
+    sc = sc + (e.nascore[t.tmpl * N + i] + (t.rev ? e.bonus[i] : 0.0f));
+    sc = sc + ((t.pref >= 0 && i == t.pref) ? 100.0f : 0.0f);
+    if (ae != nullptr) {
+      const float norm = as->span_pos ? (ae->raw[i] - as->mn) * as->q : 0.0f;
+      sc = sc + ae->weight * norm;
+    }
+    ne.score = sc;
+  }
+  return ne;
+}
 
+// Every thread's running best of nodes lo + t, lo + t + step, ... below
+// hi, reduced over each warp to its lane 0: per view the highest masked
+// score, the lowest index at it, and whether any node is feasible.
+__device__ __forceinline__ void pick_rows(const NodeEnv& e, const LiveView& lv,
+                                          const Task& t, bool is_tgt, int lo,
+                                          int hi, int step, const AffEnv* ae,
+                                          const AffShared* as, float* best,
+                                          int* bidx, bool* found) {
+  const float NEG = static_cast<float>(-1e30);
   const float lowest = __int_as_float(0xff800000);  // -inf
-  float best[2] = {lowest, lowest};
-  int bidx[2] = {N, N};
-  bool found[2] = {false, false};
-  for (int i = tid; i < N; i += BLOCK) {
-    bool sf = e.tstat[t.tmpl * N + i] > 0.0f;
-    sf = sf && !(e.blocknr[i] > 0.0f && !t.rev) && !(e.blockall[i] > 0.0f);
-    if (t.grp >= 0) sf = sf && e.orfeas[t.grp * N + i] > 0.0f;
-    sf = sf && t.volok && (t.voln < 0 || i == t.voln);
-    sf = sf && (!(e.locked[i] > 0.0f) || is_tgt);
-    bool shared = sf && (e.cnt[i] + e.pods[i]) < e.maxp[i];
-    if (gpu && !(t.gr <= 0.0f)) {
-      bool any = false;
-      for (int g = 0; g < G; ++g)
-        any = any || (e.gidle0[g * N + i] - e.gpux[g * N + i]) >= grm;
-      shared = shared && any;
-    }
-    bool fit_now = true, fit_fut = true;
-    for (int r = 0; r < R; ++r) {
-      const float idle_r = e.idle[r * N + i];
-      const float fut_r =
-          fmaxf((idle_r + e.relmp[r * N + i]) - e.pipe[r * N + i], 0.0f);
-      fit_now = fit_now && t.rr[r] <= idle_r + EPS_FIT;
-      fit_fut = fit_fut && t.rr[r] <= fut_r + EPS_FIT;
-    }
-    if (ae != nullptr) shared = shared && ae->ok[i] > 0.0f;
-    const bool feas[2] = {shared && fit_now, shared && fit_fut};
-    float sc = NEG;
-    if (feas[0] || feas[1]) {
-      sc = dyn_score(e, i, t.rr);
-      sc = sc + e.tscore[t.tmpl * N + i];
-      sc = sc + (e.nascore[t.tmpl * N + i] + (t.rev ? e.bonus[i] : 0.0f));
-      sc = sc + ((t.pref >= 0 && i == t.pref) ? 100.0f : 0.0f);
-      if (ae != nullptr) {
-        const float norm = as->span_pos ? (ae->raw[i] - as->mn) * as->q : 0.0f;
-        sc = sc + ae->weight * norm;
-      }
-    }
+  for (int v = 0; v < 2; ++v) {
+    best[v] = lowest;
+    bidx[v] = e.N;
+    found[v] = false;
+  }
+  for (int i = lo + threadIdx.x; i < hi; i += step) {
+    const NodeEval ne = node_eval(e, lv, t, is_tgt, i, ae, as);
+    const bool feas[2] = {ne.now, ne.fut};
     for (int v = 0; v < 2; ++v) {
-      take_better(best[v], bidx[v], feas[v] ? sc : NEG, i);
+      take_better(best[v], bidx[v], feas[v] ? ne.score : NEG, i);
       found[v] = found[v] || feas[v];
     }
   }
-  for (int v = 0; v < 2; ++v) {
+  for (int v = 0; v < 2; ++v)
     for (int off = 16; off > 0; off >>= 1) {
       const float os = __shfl_down_sync(0xffffffffu, best[v], off);
       const int oi = __shfl_down_sync(0xffffffffu, bidx[v], off);
       take_better(best[v], bidx[v], os, oi);
     }
-    if (lane == 0) {
+}
+
+// The warps' partials of view `warp` (warps 0 and 1), reduced to lane 0.
+__device__ __forceinline__ void pick_warps(const PickShared& ps, int nwarps,
+                                           int n, float& bs, int& bi) {
+  const int lane = threadIdx.x & 31, v = threadIdx.x >> 5;
+  bs = lane < nwarps ? ps.red_s[v][lane] : __int_as_float(0xff800000);
+  bi = lane < nwarps ? ps.red_i[v][lane] : n;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float os = __shfl_down_sync(0xffffffffu, bs, off);
+    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+    take_better(bs, bi, os, oi);
+  }
+}
+
+// Called by every thread of the block with the same task (kernel 3): the
+// best node of both views over all N nodes and whether any node is
+// feasible in each.
+__device__ Pick block_pick(const NodeEnv& e, const Task& t, bool is_tgt,
+                           PickShared& ps, const AffEnv* ae = nullptr,
+                           const AffShared* as = nullptr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float best[2];
+  int bidx[2];
+  bool found[2];
+  pick_rows(e, global_view(e), t, is_tgt, 0, e.N, BLOCK, ae, as, best, bidx,
+            found);
+  if (lane == 0)
+    for (int v = 0; v < 2; ++v) {
       ps.red_s[v][warp] = best[v];
       ps.red_i[v][warp] = bidx[v];
     }
-  }
   Pick pk;
   pk.any_now = __syncthreads_or(found[0]);
   pk.any_fut = __syncthreads_or(found[1]);
   if (warp < 2) {
-    const int v = warp;
-    float bs = ps.red_s[v][lane];
-    int bi = ps.red_i[v][lane];
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_down_sync(0xffffffffu, bs, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      take_better(bs, bi, os, oi);
-    }
-    if (lane == 0) ps.pick_i[v] = bi;
+    float bs;
+    int bi;
+    pick_warps(ps, WARPS, e.N, bs, bi);
+    if (lane == 0) ps.pick_i[warp] = bi;
   }
   __syncthreads();
   pk.node_now = ps.pick_i[0];
   pk.node_fut = ps.pick_i[1];
   return pk;
+}
+
+// One cluster block's partial of one exchange: the pick's (score, lowest
+// index) per view and its "any feasible" bits, or the affinity pass's max
+// and min in s[0], s[1].
+struct ClusterSlot {
+  float s[2];
+  int i[2];
+  int any;
+};
+
+// Warp 0 of every block: the CB blocks' partials in `slot` (this block's
+// buffer of the exchange), read through distributed shared memory after
+// the cluster barrier, reduced to lane 0. Lane r reads block r.
+__device__ __forceinline__ ClusterSlot exchange_pick(cg::cluster_group& cluster,
+                                                     ClusterSlot* slot,
+                                                     int n) {
+  const int lane = threadIdx.x & 31;
+  const int CB = static_cast<int>(cluster.num_blocks());
+  ClusterSlot w{{__int_as_float(0xff800000), __int_as_float(0xff800000)},
+                {n, n},
+                0};
+  if (lane < CB) {
+    const ClusterSlot* rs = cluster.map_shared_rank(slot, lane);
+    w.s[0] = rs->s[0];
+    w.s[1] = rs->s[1];
+    w.i[0] = rs->i[0];
+    w.i[1] = rs->i[1];
+    w.any = rs->any;
+  }
+  for (int v = 0; v < 2; ++v)
+    for (int off = 16; off > 0; off >>= 1) {
+      const float os = __shfl_down_sync(0xffffffffu, w.s[v], off);
+      const int oi = __shfl_down_sync(0xffffffffu, w.i[v], off);
+      take_better(w.s[v], w.i[v], os, oi);
+    }
+  w.any = (__any_sync(0xffffffffu, w.any & 1) ? 1 : 0) |
+          (__any_sync(0xffffffffu, w.any & 2) ? 2 : 0);
+  return w;
+}
+
+// Called by every thread of every block of the cluster with the same task
+// (kernel 1): this block evaluates its nodes [lo, hi) from its slice of the
+// live state (`lv`), then the cluster exchanges the blocks' partials
+// through `slot`. The pick is valid in thread 0 only.
+__device__ Pick cluster_pick(cg::cluster_group& cluster, const NodeEnv& e,
+                             const LiveView& lv, const Task& t, bool is_tgt,
+                             PickShared& ps, int lo, int hi, ClusterSlot* slot,
+                             const AffEnv* ae = nullptr,
+                             const AffShared* as = nullptr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float best[2];
+  int bidx[2];
+  bool found[2];
+  pick_rows(e, lv, t, is_tgt, lo, hi, CBLOCK, ae, as, best, bidx, found);
+  if (lane == 0)
+    for (int v = 0; v < 2; ++v) {
+      ps.red_s[v][warp] = best[v];
+      ps.red_i[v][warp] = bidx[v];
+    }
+  const bool any_now = __syncthreads_or(found[0]);
+  const bool any_fut = __syncthreads_or(found[1]);
+  if (warp < 2) {
+    float bs;
+    int bi;
+    pick_warps(ps, CWARPS, e.N, bs, bi);
+    if (lane == 0) {
+      slot->s[warp] = bs;
+      slot->i[warp] = bi;
+      if (warp == 0) slot->any = (any_now ? 1 : 0) | (any_fut ? 2 : 0);
+    }
+  }
+  cluster.sync();
+  Pick pk{0, 0, false, false};
+  if (warp == 0) {
+    const ClusterSlot w = exchange_pick(cluster, slot, e.N);
+    pk = Pick{w.i[0], w.i[1], (w.any & 1) != 0, (w.any & 2) != 0};
+  }
+  return pk;
+}
+
+// Called by every thread of every block of the cluster (kernel 1): the
+// affinity pass of slot s over this block's nodes [lo, hi), then the raw
+// score's max and min over the cluster through `slot`; leaves the
+// normalisation in `as`.
+__device__ void cluster_aff_eval(cg::cluster_group& cluster,
+                                 const AffEnv& ae, int N, int s,
+                                 AffShared& as, float* red, int lo, int hi,
+                                 ClusterSlot* slot) {
+  const float BIG = static_cast<float>(3.4e38);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) aff_lists(ae, s, as);
+  __syncthreads();
+  float mx, mn;
+  aff_pass(ae, N, as, red, lo, hi, CBLOCK, mx, mn);
+  if (threadIdx.x == 0) {
+    slot->s[0] = mx;
+    slot->s[1] = mn;
+  }
+  cluster.sync();
+  if (threadIdx.x < 32) {
+    const int CB = static_cast<int>(cluster.num_blocks());
+    mx = -BIG;
+    mn = BIG;
+    if (lane < CB) {
+      const ClusterSlot* rs = cluster.map_shared_rank(slot, lane);
+      mx = rs->s[0];
+      mn = rs->s[1];
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, off));
+      mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, off));
+    }
+    if (lane == 0) aff_norm(as, mx, mn);
+  }
+  __syncthreads();
 }
 
 // ---- the shard-local kernels (shard_candidates.cu, shard_wave.cu) --------
@@ -598,7 +834,7 @@ __device__ __forceinline__ RowEval shard_row(const NodeEnv& e,
     shared = shared && ok;
   }
   // the reference's float32 addition order
-  float score = dyn_score(e, i, t.rr);
+  float score = dyn_score(e, global_view(e), i, t.rr);
   score = score + t.tsrow[i];
   score = score + (t.narow[i] + (t.rev ? e.bonus[i] : 0.0f));
   score = score + ((t.pref >= 0 && i == t.pref) ? 100.0f : 0.0f);
@@ -636,53 +872,56 @@ struct SaveArea {
 // Thread 0 only: take the task from `node` (idle when do_alloc, else the
 // pipelined extra), after saving the node's column in save slot `sv`.
 // Returns the charged GPU card or -1.
-__device__ int commit(const NodeEnv& e, const Task& t, int node, bool do_alloc,
-                      const SaveArea& save, int sv) {
+__device__ int commit(const NodeEnv& e, const LiveView& lv, const Task& t,
+                      int node, bool do_alloc, const SaveArea& save, int sv) {
   const float EPS_FIT = static_cast<float>(1e-5);
   const int N = e.N, R = e.R, G = e.G;
   float* col = save.val + sv * save.stride;
   save.node[sv] = node;
   for (int r = 0; r < R; ++r) {
-    col[r] = e.idle[r * N + node];
-    col[R + r] = e.pipe[r * N + node];
+    col[r] = lv.idle[lv.k(r, node)];
+    col[R + r] = lv.pipe[lv.k(r, node)];
   }
-  col[2 * R] = e.pods[node];
-  for (int g = 0; g < G; ++g) col[2 * R + 1 + g] = e.gpux[g * N + node];
+  col[2 * R] = lv.pods[lv.k(0, node)];
+  for (int g = 0; g < G; ++g) col[2 * R + 1 + g] = lv.gpux[lv.k(g, node)];
   if (do_alloc) {
     for (int r = 0; r < R; ++r)
-      e.idle[r * N + node] = e.idle[r * N + node] - t.rr[r];
+      lv.idle[lv.k(r, node)] = lv.idle[lv.k(r, node)] - t.rr[r];
   } else {
     for (int r = 0; r < R; ++r)
-      e.pipe[r * N + node] = e.pipe[r * N + node] + t.rr[r];
+      lv.pipe[lv.k(r, node)] = lv.pipe[lv.k(r, node)] + t.rr[r];
   }
-  e.pods[node] = e.pods[node] + 1.0f;
+  lv.pods[lv.k(0, node)] = lv.pods[lv.k(0, node)] + 1.0f;
   int card = -1;
   if (G > 0 && t.gr > 0.0f) {
     // lowest fitting card on the chosen node (pick_gpu_row)
     const float grm = t.gr - EPS_FIT;
     for (int g = 0; g < G && card < 0; ++g)
-      if ((e.gidle0[g * N + node] - e.gpux[g * N + node]) >= grm) card = g;
-    if (card >= 0) e.gpux[card * N + node] = e.gpux[card * N + node] + t.gr;
+      if ((e.gidle0[g * N + node] - lv.gpux[lv.k(g, node)]) >= grm) card = g;
+    if (card >= 0)
+      lv.gpux[lv.k(card, node)] = lv.gpux[lv.k(card, node)] + t.gr;
   }
   return card;
 }
 
 // Thread 0 only: restore the first `nsave` saved columns, newest first.
-__device__ void restore(const NodeEnv& e, const SaveArea& save, int nsave) {
-  const int N = e.N, R = e.R, G = e.G;
+__device__ void restore(const NodeEnv& e, const LiveView& lv,
+                        const SaveArea& save, int nsave) {
+  const int R = e.R, G = e.G;
   for (int sv = nsave - 1; sv >= 0; --sv) {
     const int node = save.node[sv];
     const float* col = save.val + sv * save.stride;
     for (int r = 0; r < R; ++r) {
-      e.idle[r * N + node] = col[r];
-      e.pipe[r * N + node] = col[R + r];
+      lv.idle[lv.k(r, node)] = col[r];
+      lv.pipe[lv.k(r, node)] = col[R + r];
     }
-    e.pods[node] = col[2 * R];
-    for (int g = 0; g < G; ++g) e.gpux[g * N + node] = col[2 * R + 1 + g];
+    lv.pods[lv.k(0, node)] = col[2 * R];
+    for (int g = 0; g < G; ++g) lv.gpux[lv.k(g, node)] = col[2 * R + 1 + g];
   }
 }
 
-// Block-wide copy of the input node state into the live output buffers.
+// Block-wide copy of the input node state into the live output buffers
+// (kernel 3, which updates the global state in place).
 __device__ void copy_state(const NodeEnv& e, const float* idle_in,
                            const float* pipe_in, const float* pods_in,
                            const float* gpux_in) {

@@ -7,35 +7,49 @@
 // affinity arguments. The plain PyTorch version of the same function, and
 // the argument order, are in volcano_tpu_torch/ops/round_placer.py.
 //
-// Design (simple and right first):
-// - One thread block of BLOCK threads runs the whole launch. It walks the
-//   K*M placement attempts in order, because every attempt reads the
-//   capacity the previous one committed.
-// - The node-axis state (idle, pipe [R, N], pods [1, N], GPU cards [G, N],
-//   and with pod affinity the counts cnt [SK, N], tot [SK, 1], anti
-//   [ETA, N]) lives in global memory: about 200 KB at N = 10240 without
-//   affinity, about 1.2 MB more at BASELINE configuration 5 (SK = 16,
-//   ETA = 8, and the static domain rows), so it stays in L2. The kernel
-//   first copies the input state to the output buffers and then updates
-//   the outputs in place.
-// - Each attempt is the shared placement step of placement.cuh: with pod
-//   affinity a first block pass (mask, raw preferred score, its max and
-//   min over the live nodes), then the block argmax over the node axis;
-//   thread 0 commits the chosen node's column and writes the slot outputs,
-//   and the block adds the placement's affinity rows. __syncthreads()
-//   separates attempts.
-// - A gang discard restores the saved old values of the (at most M) columns
-//   the section touched, newest first, and takes the section's affinity
-//   rows back, newest first (exact: integer-valued counts, placement.cuh).
-//
 // What bounds it: not bytes and not arithmetic (a launch moves a few
 // megabytes and does some 10^8 float operations, microseconds of either
-// on an H100) but a serial chain of K*M = 128 dependent block-wide
-// reductions (two per attempt with pod affinity), each with its barriers,
-// run by one SM while the other 131 idle. A later version can spread the
-// node axis of one launch over a thread-block cluster whose distributed
-// shared memory holds the state (one reduction over up to 16 SMs per
-// attempt), and keep the per-template rows in shared memory instead of L2.
+// on an H100) but a serial chain of K*M = 128 dependent attempts, each an
+// evaluation of the node axis and a reduction over it (two with pod
+// affinity). On one SM an attempt walks all N nodes (about 26 us at N =
+// 10,240); spread over CB SMs it walks N / CB.
+//
+// Design: one thread-block cluster of CB blocks (8 or 16) spreads the node
+// axis over CB SMs, launched with cudaLaunchKernelEx and the cluster
+// dimension attribute.
+// - Block r owns the contiguous nodes [r * cap, min((r + 1) * cap, N)),
+//   cap = ceil(N / CB): the last slice may be shorter, and blocks past N
+//   own none (they still take part in every exchange).
+// - Block r keeps its slice of the live state (idle, pipe [R, cap], pods,
+//   GPU cards [G, cap]) in its own shared memory for the whole launch,
+//   reading it from the inputs at the start and writing it to the outputs
+//   at the end; about 13 KB a block at N = 10,240, R = 2 and CB = 16. The
+//   static rows stay in global memory (L2), each block reading its slice.
+// - Each attempt: every block evaluates its slice with placement.cuh's row
+//   code (node_eval, block_pick's), then one cluster exchange
+//   (cluster_pick) gives every block the same pick, the one-block pick.
+//   Every block keeps the same section bookkeeping from it (allocations,
+//   pipelines, stop, break, keep or discard). The block that owns the
+//   chosen node commits its column, picks the GPU card and saves the old
+//   column in its shared memory.
+// - A gang discard: each block restores the columns it saved, newest
+//   first, and takes back its slice of the affinity rows.
+// - The slot outputs are written once a section: node and mode by block 0,
+//   the GPU card by the block that owns the chosen node (block 0 where
+//   nothing stays placed).
+// - Pod affinity: the counts cnt [SK, N] and anti [ETA, N] are global
+//   memory, each block reading and writing its slice; each block keeps a
+//   replica of tot [SK] in shared memory and applies the same
+//   integer-valued deltas to it. The raw preferred score's max and min over
+//   the live nodes are a second exchange in the same attempt.
+// - The exchange partials are double-buffered by the parity of the
+//   launch's exchange count, so one cluster barrier an exchange is enough.
+//   The design's latency floor is K*M attempts x (one exchange, plus one
+//   more with pod affinity); chip_smoke.py phase 6 measures an exchange.
+// - A card that cannot place the cluster makes the launch fail: there is
+//   no other design to fall back to.
+
+#include <cooperative_groups.h>
 
 #include "placement.cuh"
 
@@ -62,12 +76,15 @@ enum Ptr {
 
 // integer dimensions and flags of round_placer_launch
 enum Dim { D_K, D_M, D_N, D_R, D_G, D_GANG, D_PIPELINING, D_AFF, D_SK, D_ETA,
-           D_SEL, D_A, D_B, D_PP, N_DIMS };
+           D_SEL, D_A, D_B, D_PP, D_CB, N_DIMS };
+
+// returned when the card cannot run one cluster of the asked size
+constexpr int NO_CLUSTER = -1;
 
 struct Args {
-  NodeEnv env;
+  NodeEnv env;           // idle, pipe, pods, gpux: the output buffers
   SlotEnv slots;
-  AffEnv aff;
+  AffEnv aff;            // tot: the output buffer
   const int* suffix;     // [1, KM]
   const int* active;     // [1, KM]
   // per section [1, K]
@@ -91,31 +108,85 @@ struct Args {
   int K, M, gang, has_aff;
 };
 
-__global__ void __launch_bounds__(BLOCK)
+// 4-byte words of dynamic shared memory of one block: the live state's
+// slice [2R + 1 + G, cap], the saved columns of one section (node ids and
+// values [M, 2R + 1 + G]), the section's node, mode and card [M], the tot
+// replica [SK] and one attempt's affinity term lists (ops/round_placer.py
+// shared_bytes computes the same)
+inline size_t smem_words(int cap, int M, int R, int G, int SK,
+                         int list_ints) {
+  const size_t col = 2 * R + 1 + G;
+  return col * cap + M * (col + 1) + 3 * M + SK + list_ints;
+}
+
+// row `row` of the live state: idle rows, pipe rows, pods, GPU card rows
+__device__ __forceinline__ const float* state_row(const Args& a, int row) {
+  const int R = a.env.R, N = a.env.N;
+  if (row < R) return a.idle_in + row * N;
+  if (row < 2 * R) return a.pipe_in + (row - R) * N;
+  if (row == 2 * R) return a.pods_in;
+  return a.gpux_in + (row - 2 * R - 1) * N;
+}
+
+__device__ __forceinline__ float* state_out(const Args& a, int row) {
+  const int R = a.env.R, N = a.env.N;
+  if (row < R) return a.env.idle + row * N;
+  if (row < 2 * R) return a.env.pipe + (row - R) * N;
+  if (row == 2 * R) return a.env.pods;
+  return a.env.gpux + (row - 2 * R - 1) * N;
+}
+
+__global__ void __launch_bounds__(CBLOCK)
     round_placer_kernel(const __grid_constant__ Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const NodeEnv& e = a.env;
-  const AffEnv& ae = a.aff;
   const bool aff = a.has_aff != 0;
   const int R = e.R, G = e.G, M = a.M, K = a.K, N = e.N;
-  const int KM = K * M;
+  const int CB = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cap = (N + CB - 1) / CB;
+  const int lo = min(rank * cap, N), hi = min(lo + cap, N);
+  const int col = 2 * R + 1 + G;
 
   extern __shared__ float smem[];
-  const SaveArea save{reinterpret_cast<int*>(smem), smem + M, 2 * R + 1 + G};
+  float* st = smem;
+  const LiveView lv{st, st + R * cap, st + 2 * R * cap,
+                    st + (2 * R + 1) * cap, cap, lo};
+  int* save_node = reinterpret_cast<int*>(st + col * cap);
+  const SaveArea save{save_node, reinterpret_cast<float*>(save_node + M),
+                      col};
+  int* sec_node = reinterpret_cast<int*>(save.val + M * col);
+  int* sec_mode = sec_node + M;
+  int* sec_card = sec_mode + M;
+  float* tot = reinterpret_cast<float*>(sec_card + M);
+  int* lists = reinterpret_cast<int*>(tot + (aff ? a.aff.SK : 0));
+  __shared__ ClusterSlot slots[2];
   __shared__ PickShared ps;
   __shared__ AffShared as;
   __shared__ float aff_red[2 * WARPS];
   __shared__ int sec_stopped, sec_broke, sec_nalloc, sec_npipe, sec_nsave,
       sec_keep;
-  if (aff && tid == 0)
-    aff_bind(as, reinterpret_cast<int*>(smem + M + M * save.stride), ae);
+  int xc = 0;  // exchanges so far: its parity picks the slot buffer
 
-  copy_state(e, a.idle_in, a.pipe_in, a.pods_in, a.gpux_in);
-  if (aff) copy_aff(ae, N, a.cnt_in, a.tot_in, a.anti_in);
-  for (int j = tid; j < KM; j += BLOCK) {
-    a.node_o[j] = -1;
-    a.mode_o[j] = MODE_NONE;
-    a.gpu_o[j] = -1;
+  // this block's affinity view: the counts in global memory, tot its replica
+  AffEnv ae = a.aff;
+  ae.tot = tot;
+  if (aff && tid == 0) aff_bind(as, lists, ae);
+
+  // this block's slice of the input state
+  for (int j = tid; j < col * cap; j += CBLOCK) {
+    const int row = j / cap, i = lo + (j - row * cap);
+    if (i < hi) st[j] = state_row(a, row)[i];
+  }
+  if (aff) {
+    for (int k = 0; k < ae.SK; ++k)
+      for (int i = lo + tid; i < hi; i += CBLOCK)
+        ae.cnt[k * N + i] = a.cnt_in[k * N + i];
+    for (int k = 0; k < ae.ETA; ++k)
+      for (int i = lo + tid; i < hi; i += CBLOCK)
+        ae.anti_cnt[k * N + i] = a.anti_in[k * N + i];
+    for (int k = tid; k < ae.SK; k += CBLOCK) tot[k] = a.tot_in[k];
   }
 
   for (int k = 0; k < K; ++k) {
@@ -126,18 +197,27 @@ __global__ void __launch_bounds__(BLOCK)
       sec_npipe = 0;
       sec_nsave = 0;
     }
+    for (int m = tid; m < M; m += CBLOCK) {
+      sec_node[m] = -1;
+      sec_mode[m] = MODE_NONE;
+      sec_card[m] = -1;
+    }
     __syncthreads();
     const bool sec_act = a.secact[k] > 0;
     const bool is_tgt = a.istgt[k] > 0;
     for (int m = 0; m < M; ++m) {
       const int s = k * M + m;
-      // uniform over the block: every thread reads the same shared flags
+      // uniform over the cluster: every block keeps the same flags
       const bool active =
           a.active[s] > 0 && sec_act && !sec_stopped && !sec_broke;
       if (active) {
         const Task t = load_task(a.slots, e, s);
-        if (aff) aff_eval(ae, N, s, as, aff_red);
-        const Pick pk = block_pick(e, t, is_tgt, ps, aff ? &ae : nullptr, &as);
+        if (aff)
+          cluster_aff_eval(cluster, ae, N, s, as, aff_red, lo, hi,
+                           &slots[xc++ & 1]);
+        const Pick pk = cluster_pick(cluster, e, lv, t, is_tgt, ps, lo, hi,
+                                     &slots[xc++ & 1], aff ? &ae : nullptr,
+                                     &as);
         if (tid == 0) {
           const bool do_alloc = pk.any_now;
           const bool do_pipe = !pk.any_now && pk.any_fut && e.pipelining;
@@ -145,10 +225,11 @@ __global__ void __launch_bounds__(BLOCK)
           as.node = -1;
           if (placed) {
             const int node = do_alloc ? pk.node_now : pk.node_fut;
-            const int card = commit(e, t, node, do_alloc, save, sec_nsave++);
-            a.node_o[s] = node;
-            a.mode_o[s] = do_alloc ? MODE_ALLOCATED : MODE_PIPELINED;
-            a.gpu_o[s] = card;
+            sec_node[m] = node;
+            sec_mode[m] = do_alloc ? MODE_ALLOCATED : MODE_PIPELINED;
+            if (node >= lo && node < hi)
+              sec_card[m] = commit(e, lv, t, node, do_alloc, save,
+                                   sec_nsave++);
             as.node = node;
           }
           sec_nalloc += do_alloc ? 1 : 0;
@@ -161,7 +242,8 @@ __global__ void __launch_bounds__(BLOCK)
         }
         if (aff) {
           __syncthreads();
-          if (as.node >= 0) aff_apply(ae, N, s, as.node, 1.0f, as, true);
+          if (as.node >= 0)
+            aff_apply(ae, N, s, as.node, 1.0f, as, true, lo, hi, CBLOCK);
         }
       }
       __syncthreads();
@@ -177,32 +259,110 @@ __global__ void __launch_bounds__(BLOCK)
     __syncthreads();
     if (!sec_keep) {
       if (aff)
-        for (int s = (k + 1) * M - 1; s >= k * M; --s)
-          if (a.mode_o[s] != MODE_NONE)
-            aff_apply(ae, N, s, a.node_o[s], -1.0f, as, false);
-      if (tid == 0) {
-        restore(e, save, sec_nsave);
-        for (int j = k * M; j < (k + 1) * M; ++j) {
-          a.node_o[j] = -1;
-          a.mode_o[j] = MODE_NONE;
-          a.gpu_o[j] = -1;
-        }
+        for (int m = M - 1; m >= 0; --m)
+          if (sec_mode[m] != MODE_NONE)
+            aff_apply(ae, N, k * M + m, sec_node[m], -1.0f, as, false, lo,
+                      hi, CBLOCK);
+      if (tid == 0) restore(e, lv, save, sec_nsave);
+    }
+    // the section's slot outputs, each written by one block
+    for (int m = tid; m < M; m += CBLOCK) {
+      const int j = k * M + m;
+      const int node = sec_keep ? sec_node[m] : -1;
+      if (rank == 0) {
+        a.node_o[j] = node;
+        a.mode_o[j] = node >= 0 ? sec_mode[m] : MODE_NONE;
       }
+      if (rank == (node >= 0 ? node / cap : 0))
+        a.gpu_o[j] = node >= 0 ? sec_card[m] : -1;
     }
     __syncthreads();
   }
+
+  // this block's slice of the final state
+  for (int j = tid; j < col * cap; j += CBLOCK) {
+    const int row = j / cap, i = lo + (j - row * cap);
+    if (i < hi) state_out(a, row)[i] = st[j];
+  }
+  if (aff && rank == 0)
+    for (int k = tid; k < ae.SK; k += CBLOCK) a.aff.tot[k] = tot[k];
+  // no block leaves while another may still read its exchange slots
+  cluster.sync();
+}
+
+// The cluster exchange alone, `iters` times: each block writes a slot, one
+// cluster barrier, warp 0 reads the CB slots (the pick's exchange, with no
+// node evaluation). Block 0 writes the last merged pick to `out`.
+__global__ void __launch_bounds__(CBLOCK) exchange_probe_kernel(int iters,
+                                                                int* out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ ClusterSlot slots[2];
+  const int rank = static_cast<int>(cluster.block_rank());
+  ClusterSlot w{};
+  for (int x = 0; x < iters; ++x) {
+    ClusterSlot* slot = &slots[x & 1];
+    if (threadIdx.x == 0) {
+      slot->s[0] = slot->s[1] = static_cast<float>((rank * 7 + x) % 5);
+      slot->i[0] = slot->i[1] = rank;
+      slot->any = 1;
+    }
+    cluster.sync();
+    if (threadIdx.x < 32) w = exchange_pick(cluster, slot, MAX_CB);
+  }
+  if (rank == 0 && threadIdx.x == 0) out[0] = w.i[0];
+  cluster.sync();
+}
+
+// Launch `kernel` as one cluster of CB blocks of CBLOCK threads; 0, a CUDA
+// error code, or NO_CLUSTER when the card cannot run the cluster.
+template <typename... KT, typename... AT>
+int launch_cluster(void (*kernel)(KT...), int CB, size_t smem,
+                   cudaStream_t stream, AT... args) {
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (CB > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CB, 1, 1);
+  cfg.blockDim = dim3(CBLOCK, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CB;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return NO_CLUSTER;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // ptrs: the inputs in the order of round_placer.PlacerArgs, then the 10
 // outputs, then the [2, N] scratch (null where a part is off); dims: see
-// Dim; weights: binpack, least, most, balanced, pod affinity.
+// Dim; weights: binpack, least, most, balanced, pod affinity. Returns 0,
+// a CUDA error code, or NO_CLUSTER.
 extern "C" int round_placer_launch(void* const* ptrs, const int* dims,
                                    const float* weights, void* stream) {
   const int K = dims[D_K], M = dims[D_M], N = dims[D_N], R = dims[D_R],
-            G = dims[D_G], has_aff = dims[D_AFF];
-  if (R < 1 || R > MAX_R || K < 1 || M < 1 || N < 1 || G < 0)
+            G = dims[D_G], has_aff = dims[D_AFF], CB = dims[D_CB];
+  if (R < 1 || R > MAX_R || K < 1 || M < 1 || N < 1 || G < 0 || CB < 1 ||
+      CB > MAX_CB)
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto I = [&](int i) { return static_cast<const int*>(ptrs[i]); };
@@ -244,16 +404,28 @@ extern "C" int round_placer_launch(void* const* ptrs, const int* dims,
   a.M = M;
   a.gang = dims[D_GANG];
   a.has_aff = has_aff;
-  int list_ints = 0;
+  int list_ints = 0, SK = 0;
   if (has_aff) {
     const AffEnv& ae = a.aff;
     if (ae.SK < 1 || ae.ETA < 1 || ae.SEL < 1 || ae.A < 1 || ae.B < 1 ||
         ae.PP < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     list_ints = aff_list_ints(ae.SK, ae.ETA, ae.SEL, ae.A, ae.B, ae.PP);
+    SK = ae.SK;
   }
-  const size_t smem =
-      (static_cast<size_t>(M) * (2 * R + G + 2) + list_ints) * sizeof(float);
-  round_placer_kernel<<<1, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const int cap = (N + CB - 1) / CB;
+  const size_t smem = smem_words(cap, M, R, G, SK, list_ints) * 4;
+  return launch_cluster(round_placer_kernel, CB, smem,
+                        static_cast<cudaStream_t>(stream), a);
+}
+
+// `iters` cluster exchanges of CB blocks (exchange_probe_kernel); `out`
+// int32[1]. Returns as round_placer_launch.
+extern "C" int exchange_probe_launch(int CB, int iters, void* out,
+                                     void* stream) {
+  if (CB < 1 || CB > MAX_CB || iters < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster(exchange_probe_kernel, CB, 0,
+                        static_cast<cudaStream_t>(stream), iters,
+                        static_cast<int*>(out));
 }

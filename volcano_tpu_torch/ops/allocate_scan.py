@@ -712,7 +712,10 @@ def _sharded_pops(cfg, D, place_shard, place_wave, snap, extras, node_env,
                 active = can_run & nbe[m]
                 args = [req_p[m:m + 1], int_p[m:m + 1], istgt] + shard_env
                 args += [idle, pipe, pods] + ([gpux] if cfg.enable_gpu else [])
-                idx, found, _ = sp.combine(place_shard(cfg, D, args), N)
+                # the shards' winners combined: by the kernel's last block
+                # on the card, by sp.combine on the plain route
+                cand = place_shard(cfg, D, args)
+                idx, found = cand.best_idx, cand.best_found
                 can_now = found[0:1] & active
                 can_fut = found[1:2] & active & bool(cfg.enable_pipelining)
                 do_alloc = can_now
@@ -792,8 +795,10 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
     one (``dyn_placer.dyn_place``), ``shard_placer`` the shard-local
     candidate search (``shard_placer.shard_candidates``) and
     ``wave_placer`` the wide one (``shard_wave.shard_wave``), each with the
-    same signature; callers use them to run the plain versions on the card
-    or to watch the launches.
+    same signature and outputs (a ``shard_placer`` returns the shards'
+    combined triple too: ``shard_placer.shard_candidates_plain_combined``
+    is its plain version); callers use them to run the plain versions on
+    the card or to watch the launches.
 
     ``mesh`` (``parallel.sharding.NodeMesh``): the node axis split into
     ``mesh.size`` shards. The cycle then takes the reference's sharded scan
@@ -801,8 +806,8 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
     time with the ordering keys recomputed every pop, and for each of the
     popped job's slots one attempt whose feasibility -> score -> argmax runs
     shard-local in the candidate kernel (one launch covers every shard of
-    the device), the shards' winners combined as the reference combines
-    them, and the commit, the gang finalize and the queue and drf
+    the device, and its last block combines the shards' winners as the
+    reference combines them), and the commit, the gang finalize and the queue and drf
     accounting in tensor code. With ``wave_width`` W > 1 the slots of a pop
     go in waves of W instead, each wave one launch of the wide candidate
     kernel (the reference's wavefront section walk, :2096-2437), with the

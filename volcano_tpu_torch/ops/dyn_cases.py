@@ -135,11 +135,14 @@ def make_aff_inputs(rng, N, S, SK=6, ETA=3, SEL=4, A=2, B=2, PP=2,
 
 
 def make_inputs(seed, K=8, M=4, N=40, R=2, G=2, GR=2, P=3, gpu=True,
-                tight=False, releasing=False, big_gangs=False, aff=None):
+                tight=False, releasing=False, big_gangs=False, aff=None,
+                ties=False):
     """Flat round placer arguments (numpy) in the kernel's order. Values
     sit on a 0.25 grid, so scores tie and capacity hits exact fits. With
     ``aff`` (knobs of make_aff_inputs) the affinity arguments join, for a
-    launch with cfg.enable_pod_affinity."""
+    launch with cfg.enable_pod_affinity. ``ties`` makes every node a copy
+    of one of 4 drawn nodes, so the best score recurs all along the node
+    axis (across the slices of a cluster's blocks)."""
     rng = np.random.RandomState(seed)
     KM = K * M
 
@@ -191,6 +194,14 @@ def make_inputs(seed, K=8, M=4, N=40, R=2, G=2, GR=2, P=3, gpu=True,
     pods = rng.randint(0, 2, (1, N)).astype(F32)
     gpux = rng.randint(0, 3, (G, N)).astype(F32)
     a = make_aff_inputs(rng, N, KM, **aff) if aff is not None else None
+    if ties:
+        src = rng.randint(0, 4, N)
+        (tstat, tscore, nascore, blocknr, blockall, bonus, locked, orfeas,
+         relmp, alloc, cnt, maxp, gidle0, idle, pipe, pods, gpux) = (
+            np.ascontiguousarray(x[:, src]) for x in (
+                tstat, tscore, nascore, blocknr, blockall, bonus, locked,
+                orfeas, relmp, alloc, cnt, maxp, gidle0, idle, pipe, pods,
+                gpux))
     args = [resreq] + ([gpu_req] if gpu else []) + [
         pref, suffix, tmpl, grp, voln, volok, rev, active,
         ready0, minav, canb, secact, istgt,

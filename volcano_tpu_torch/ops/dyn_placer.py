@@ -82,7 +82,9 @@ KEY_NS, KEY_QSHARE, KEY_READY, KEY_JSHARE = -1, -2, -3, -4
 KEY_HCOL = -8
 #: longest key list the kernel takes
 MAX_KEYS = 32
-#: jobs each thread of the kernel's block keeps in its eligibility bitmask
+#: threads of the kernel's one block (placement.cuh BLOCK), and the jobs
+#: each keeps in its eligibility bitmask
+BLOCK = 1024
 JOB_BITS = 32
 
 #: launches of the CUDA kernel since the count was last set to 0, and those
@@ -505,8 +507,8 @@ def dyn_place_cuda(cfg, C: int, KP: int, M: int, args):
     if not 1 <= R <= rp.MAX_R:
         raise ValueError(f"the kernel takes 1..{rp.MAX_R} resource dims, "
                          f"got {R}")
-    if J > JOB_BITS * rp.BLOCK:
-        raise ValueError(f"the kernel takes up to {JOB_BITS * rp.BLOCK} "
+    if J > JOB_BITS * BLOCK:
+        raise ValueError(f"the kernel takes up to {JOB_BITS * BLOCK} "
                          f"jobs, got {J}")
     if len(plan) > MAX_KEYS:
         raise ValueError(f"{len(plan)} ordering keys, over {MAX_KEYS}")

@@ -22,7 +22,9 @@ Two implementations share one signature and argument order (the order of
 ``pallas_place._read_slot_env`` / ``_read_node_env``):
 
 - :func:`round_place_cuda` launches the hand-written CUDA kernel
-  (``csrc/round_placer.cu``), for tensors on a CUDA device;
+  (``csrc/round_placer.cu``), for tensors on a CUDA device: one
+  thread-block cluster of CB blocks, block r owning the nodes
+  :func:`cluster_slices` gives it;
 - :func:`round_place_plain` is the plain PyTorch version of the same
   function, the port's counterpart of ``interpret=True``.
 
@@ -502,23 +504,42 @@ def _library():
     if _lib is None:
         from ._build import load
         lib = load("round_placer")
-        fn = lib.round_placer_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4
+        for fn in (lib.round_placer_launch, lib.exchange_probe_launch):
+            fn.restype = ctypes.c_int
+        lib.round_placer_launch.argtypes = [ctypes.c_void_p] * 4
+        lib.exchange_probe_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p,
+                                              ctypes.c_void_p]
         _lib = lib
     return _lib
 
 
-#: threads of the kernel's one block; the wrapper's launch-shape check and
-#: the source's BLOCK must agree
-BLOCK = 1024
+#: blocks of the kernel's cluster (8 or 16 on an H100; 16 is past the
+#: portable 8 and needs the card's consent), chosen by chip_smoke.py
+#: phase 6's comparison of the two; the largest cluster the kernel takes;
+#: threads a block (the source's CBLOCK)
+CLUSTER = 16
+MAX_CB = 16
+CBLOCK = 512
+#: shared memory a block can use on an H100 (232,448 bytes), less what
+#: the kernel keeps in static shared memory
+MAX_SHARED = 232448 - 2048
 #: outputs of the C launcher, after the inputs (absent ones as null)
 N_OUTS = 10
 #: pointer arguments of the C launcher: inputs, outputs, the scratch rows
 N_PTRS = len(PlacerArgs._fields) + N_OUTS + 1
 #: order of the integer dimensions and flags of the C launcher
 DIMS = ("K", "M", "N", "R", "G", "gang", "pipelining", "aff", "SK", "ETA",
-        "SEL", "A", "B", "PP")
+        "SEL", "A", "B", "PP", "CB")
+#: the C launcher's code for a cluster the card cannot run
+NO_CLUSTER = -1
+
+
+def cluster_slices(N: int, CB: int) -> List[tuple]:
+    """The nodes [lo, hi) block r of a cluster of CB blocks owns: runs of
+    ceil(N / CB), the last one shorter, empty past N."""
+    cap = -(-N // CB)
+    return [(min(r * cap, N), min(r * cap + cap, N)) for r in range(CB)]
 
 
 def aff_dims(a) -> dict:
@@ -540,11 +561,17 @@ def aff_list_ints(d: dict) -> int:
             + d["SK"])
 
 
-def shared_bytes(M: int, R: int, G: int, list_ints: int = 0) -> int:
-    """Dynamic shared memory of one launch: the saved node columns of one
-    section (node id + idle, pipe [R] + pods + gpu cards [G] per slot), and
-    the affinity term lists of one attempt."""
-    return (M * (2 * R + G + 2) + list_ints) * 4
+def shared_bytes(N: int, CB: int, M: int, R: int, G: int, SK: int = 0,
+                 list_ints: int = 0) -> int:
+    """Dynamic shared memory of each block of one launch (the source's
+    smem_words): the block's slice of the live state (idle, pipe [R], pods,
+    GPU cards [G] a node), the saved node columns of one section (node id
+    + the same 2R + 1 + G values a slot), the section's node, mode and card
+    a slot, and with pod affinity the replica of the totals [SK] and one
+    attempt's term lists."""
+    col = 2 * R + 1 + G
+    cap = -(-N // CB)
+    return (col * cap + M * (col + 1) + 3 * M + SK + list_ints) * 4
 
 
 def aff_shapes(a, S: int) -> dict:
@@ -610,8 +637,10 @@ def _check(cfg, K, M, a: PlacerArgs):
     check_layout(want, a)
 
 
-def round_place_cuda(cfg, K: int, M: int, args):
-    """Launch the CUDA kernel on the current stream (no synchronisation)."""
+def round_place_cuda(cfg, K: int, M: int, args, cb: Optional[int] = None):
+    """Launch the CUDA kernel on the current stream (no synchronisation),
+    as one cluster of ``cb`` blocks (:data:`CLUSTER` when not given).
+    Raises when the card cannot run the cluster."""
     global launches, aff_launches
     a = unpack_args(cfg, args)
     if not a.idle.is_cuda:
@@ -622,14 +651,20 @@ def round_place_cuda(cfg, K: int, M: int, args):
     R, N = a.idle.shape
     G = a.gidle0.shape[0] if gpu else 0
     ad = aff_dims(a)
-    # launch shape: one block, per-dim registers, the section's saved
-    # columns and one attempt's affinity term lists
+    CB = CLUSTER if cb is None else cb
+    # launch shape: one cluster, per-dim registers, each block's slice of
+    # the state, the section's saved columns and one attempt's affinity
+    # term lists
     if not 1 <= R <= MAX_R:
         raise ValueError(f"the kernel takes 1..{MAX_R} resource dims, got {R}")
-    smem = shared_bytes(M, R, G, aff_list_ints(ad))
-    if smem > 48 * 1024:
-        raise ValueError(f"M={M} needs {smem} bytes of shared memory, over "
-                         f"the 48 KiB a launch takes without opt-in")
+    if not 1 <= CB <= MAX_CB:
+        raise ValueError(f"the kernel takes clusters of 1..{MAX_CB} blocks, "
+                         f"not {CB}")
+    smem = shared_bytes(N, CB, M, R, G, ad["SK"], aff_list_ints(ad))
+    if smem > MAX_SHARED:
+        raise ValueError(f"N={N}, M={M} need {smem} bytes of shared memory "
+                         f"a block at CB={CB}, over the {MAX_SHARED} a "
+                         f"block can take")
     KM = K * M
     dev = a.idle.device
     outs = [torch.empty(KM, dtype=torch.int32, device=dev) for _ in range(3)]
@@ -642,18 +677,38 @@ def round_place_cuda(cfg, K: int, M: int, args):
         t.data_ptr() if t is not None else None
         for t in list(a) + outs + [scratch]])
     dims = dict(K=K, M=M, N=N, R=R, G=G, gang=int(bool(cfg.enable_gang)),
-                pipelining=int(bool(cfg.enable_pipelining)), **ad)
+                pipelining=int(bool(cfg.enable_pipelining)), CB=CB, **ad)
     ints = (ctypes.c_int * len(DIMS))(*[dims[k] for k in DIMS])
     weights = (ctypes.c_float * 5)(
         *_weights(cfg), float(np.float32(cfg.pod_affinity_weight)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _library().round_placer_launch(ptrs, ints, weights,
                                         ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"round_placer launch failed: CUDA error {rc}")
+    _raise_launch(rc, "round_placer", CB)
     launches += 1
     aff_launches += ad["aff"]
     return tuple(o for o in outs if o is not None)
+
+
+def _raise_launch(rc: int, what: str, CB: int) -> None:
+    if rc == NO_CLUSTER:
+        raise RuntimeError(f"{what}: the card cannot run a cluster of {CB} "
+                           f"blocks (cudaOccupancyMaxActiveClusters is 0)")
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+def exchange_probe_cuda(CB: int, iters: int, device) -> torch.Tensor:
+    """``iters`` cluster exchanges of ``CB`` blocks alone (the kernel's
+    pick exchange without the node evaluation), on the current stream; for
+    timing the exchange. Returns the int32[1] the probe writes."""
+    out = torch.empty(1, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = _library().exchange_probe_launch(CB, iters,
+                                          ctypes.c_void_p(out.data_ptr()),
+                                          ctypes.c_void_p(stream))
+    _raise_launch(rc, "exchange_probe", CB)
+    return out
 
 
 def round_place(cfg, K: int, M: int, args):

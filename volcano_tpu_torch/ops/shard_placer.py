@@ -18,18 +18,25 @@ future idle):
 
 :func:`combine` reduces the D candidates of a view to the winner
 ``select.best_node`` returns on the full axis, and the raw tie count at the
-global maximum (``select.tie_count`` applies ``max(n - 1, 0)`` to it).
+global maximum (``select.tie_count`` applies ``max(n - 1, 0)`` to it). The
+cycle reads that combined triple from the candidates it is given
+(``ShardCandidates.best_idx``, ``best_found``, ``best_ties``).
 
-Three functions:
+The functions:
 
 - :func:`shard_candidates_plain`: the plain PyTorch version of one shard's
   launch, in the reference's argument order (``off`` is the shard's first
   global row), line by line ``_shard_cand_kernel``;
+  :func:`shard_candidates_plain_all` runs it on every shard, and
+  :func:`shard_candidates_plain_combined` adds :func:`combine`'s triple;
 - :func:`shard_candidates_cuda`: one launch of the hand-written CUDA kernel
-  (``csrc/shard_candidates.cu``) over all D shards of a device, one thread
-  block per shard, reading the global [.., N] tensors in place;
+  (``csrc/shard_candidates.cu``) over all D shards of a device, a grid of
+  blocks of ROWS rows each reading the global [.., N] tensors in place,
+  whose last block merges the blocks' partials and combines the shards,
+  so the triple comes out of the same launch;
 - :func:`shard_candidates`: the wrapper the cycle calls: the kernel for
-  CUDA tensors, the plain version shard by shard for CPU tensors.
+  CUDA tensors, the plain version shard by shard and :func:`combine` for
+  CPU tensors.
 
 Arguments of the wrapper (node axis last, full width N; ``*`` only when
 ``cfg.enable_gpu``)::
@@ -97,11 +104,15 @@ NODE_FIELDS = ShardArgs._fields[3:]
 
 
 class ShardCandidates(NamedTuple):
-    """Per-shard candidates, row 0 the "now" view, row 1 the "future" view."""
+    """Per-shard candidates, row 0 the "now" view, row 1 the "future" view,
+    and the D shards combined (:func:`combine`), None where not computed."""
     score: torch.Tensor   # f32[2, D]
     idx: torch.Tensor     # i32[2, D] global row
     found: torch.Tensor   # i32[2, D]
     ties: torch.Tensor    # i32[2, D] raw count at the shard's best
+    best_idx: Optional[torch.Tensor] = None     # i32[2] global winner
+    best_found: Optional[torch.Tensor] = None   # bool[2]
+    best_ties: Optional[torch.Tensor] = None    # i32[2] raw, at the best
 
 
 def unpack_args(cfg, args) -> ShardArgs:
@@ -293,12 +304,53 @@ def _library():
     return _lib
 
 
-#: outputs of the C launcher, after the inputs: scores f32[2, D], then
-#: (index, found, ties) i32[3, 2, D]
-N_OUTS = 2
-N_PTRS = len(ShardArgs._fields) + N_OUTS
+#: outputs of the C launcher, after the inputs: scores f32[2, D], (index,
+#: found, ties) i32[3, 2, D], the combined (index, ties) i32[2, 2] and
+#: found bool[2]; then its scratch: the blocks' partials and the counter
+N_OUTS = 4
+N_PTRS = len(ShardArgs._fields) + N_OUTS + 2
 #: order of the integer dimensions of the C launcher
-DIMS = ("D", "NL", "R", "G")
+DIMS = ("D", "NL", "R", "G", "threads", "rows")
+#: the grid's block: threads (128 or 256) and rows a thread; set by
+#: chip_smoke.py phase 19's comparison of the four on an H100
+THREADS = 256
+ROWS_PER_THREAD = 1
+#: bytes of one block's partial (csrc/shard_candidates.cu Part)
+PART_BYTES = 32
+
+
+def row_blocks(NL: int, rows: int) -> int:
+    """Blocks a shard of NL rows takes at ``rows`` rows a block (the last
+    one takes what is left)."""
+    return -(-NL // rows)
+
+
+def grid_geometry(threads: Optional[int] = None,
+                  rows_per_thread: Optional[int] = None):
+    """(threads, rows a block) of the kernel's blocks, the module's
+    defaults where not given; raises on a block the kernel does not take."""
+    threads = THREADS if threads is None else threads
+    rpt = ROWS_PER_THREAD if rows_per_thread is None else rows_per_thread
+    if threads not in (128, 256) or rpt not in (1, 2):
+        raise ValueError(f"the kernel takes 128 or 256 threads and 1 or 2 "
+                         f"rows a thread, not {threads} and {rpt}")
+    return threads, threads * rpt
+
+
+#: per device: the ticket counter (int32[1], 0 between launches: the
+#: kernel's last block puts it back) and the partials' scratch
+_work: dict = {}
+
+
+def _workspace(dev, n_parts: int):
+    ticket, part = _work.get(dev, (None, None))
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    if part is None or part.numel() * 4 < n_parts * PART_BYTES:
+        part = torch.empty(n_parts * PART_BYTES // 4, dtype=torch.int32,
+                           device=dev)
+    _work[dev] = (ticket, part)
+    return ticket, part
 
 
 def node_layout(cfg, a) -> dict:
@@ -331,26 +383,35 @@ def _check(cfg, D: int, a: ShardArgs):
         **node_layout(cfg, a)), a)
 
 
-def shard_candidates_cuda(cfg, D: int, args) -> ShardCandidates:
+def shard_candidates_cuda(cfg, D: int, args, threads: Optional[int] = None,
+                          rows_per_thread: Optional[int] = None
+                          ) -> ShardCandidates:
     """Launch the CUDA kernel over the D shards on the current stream (no
-    synchronisation)."""
+    synchronisation): the per-shard candidates and their combined triple.
+    ``threads`` and ``rows_per_thread`` choose the grid's block
+    (:func:`grid_geometry`)."""
     global launches
     a = unpack_args(cfg, args)
     if not a.idle.is_cuda:
         raise ValueError(f"the kernel takes tensors on a CUDA device, not "
                          f"{a.idle.device}")
     _check(cfg, D, a)
+    T, rows = grid_geometry(threads, rows_per_thread)
     R, N = a.idle.shape
     if not 1 <= R <= MAX_R:
         raise ValueError(f"the kernel takes 1..{MAX_R} resource dims, got {R}")
     G = a.gidle0.shape[0] if cfg.enable_gpu else 0
     dev = a.idle.device
+    NL = N // D
+    ticket, part = _workspace(dev, D * row_blocks(NL, rows))
     score = torch.empty((2, D), dtype=torch.float32, device=dev)
     ints = torch.empty((3, 2, D), dtype=torch.int32, device=dev)
+    best = torch.empty((2, 2), dtype=torch.int32, device=dev)
+    found = torch.empty(2, dtype=torch.bool, device=dev)
     ptrs = (ctypes.c_void_p * N_PTRS)(*[
         t.data_ptr() if t is not None else None
-        for t in list(a) + [score, ints]])
-    dims = dict(D=D, NL=N // D, R=R, G=G)
+        for t in list(a) + [score, ints, best, found, part, ticket]])
+    dims = dict(D=D, NL=NL, R=R, G=G, threads=T, rows=rows)
     note_kernel_launch("shard_candidates", a, dims)
     ints_c = (ctypes.c_int * len(DIMS))(*[dims[k] for k in DIMS])
     weights = (ctypes.c_float * 4)(*_weights(cfg))
@@ -360,7 +421,8 @@ def shard_candidates_cuda(cfg, D: int, args) -> ShardCandidates:
     if rc != 0:
         raise RuntimeError(f"shard_candidates launch failed: CUDA error {rc}")
     launches += 1
-    return ShardCandidates(score, ints[0], ints[1], ints[2])
+    return ShardCandidates(score, ints[0], ints[1], ints[2], best[0], found,
+                           best[1])
 
 
 def shard_candidates_plain_all(cfg, D: int, args) -> ShardCandidates:
@@ -379,6 +441,15 @@ def shard_candidates_plain_all(cfg, D: int, args) -> ShardCandidates:
                            torch.stack([col[1], col[5]]),
                            torch.stack([col[2], col[6]]),
                            torch.stack([col[3], col[7]]))
+
+
+def shard_candidates_plain_combined(cfg, D: int, args) -> ShardCandidates:
+    """The plain version over every shard and :func:`combine`'s triple, on
+    the device of the arguments: what :func:`shard_candidates` gives for
+    CPU tensors."""
+    c = shard_candidates_plain_all(cfg, D, args)
+    idx, found, ties = combine(c, unpack_args(cfg, args).idle.shape[1])
+    return c._replace(best_idx=idx, best_found=found, best_ties=ties)
 
 
 def note_kernel_launch(kernel: str, a, dims: dict, per_shard: int = 1) -> None:
@@ -405,14 +476,15 @@ def note_plain_launch(kernel: str, a, D: int, shard_args,
 
 
 def shard_candidates(cfg, D: int, args) -> ShardCandidates:
-    """One attempt over D shards: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. The launch is recorded on both."""
+    """One attempt over D shards and their combined triple: the CUDA kernel
+    for CUDA tensors, the plain version and :func:`combine` for CPU
+    tensors. The launch is recorded on both."""
     dev = args[0].device
     if dev.type == "cuda":
         return shard_candidates_cuda(cfg, D, args)
     if dev.type == "cpu":
         _check(cfg, D, unpack_args(cfg, args))
-        return shard_candidates_plain_all(cfg, D, args)
+        return shard_candidates_plain_combined(cfg, D, args)
     raise ValueError(f"no shard placer for device {dev}")
 
 

@@ -10,7 +10,7 @@ the unsharded paths.
 
 Here a :class:`NodeMesh` is a tuple of torch devices, one per shard. The
 same device may appear D times: D virtual shards on one device, which one
-launch of the candidate kernel covers (one thread block per shard), the
+launch of the candidate kernel covers (a run of blocks per shard), the
 counterpart of the virtual CPU mesh the reference's tests build. A mesh
 over two or more distinct devices (the node axis resident across cards,
 with NCCL between them) is ROADMAP queue 1 item 6c, and raises.
