@@ -63,7 +63,7 @@ enum Ptr {
   O_NODE, O_MODE, O_GPU, O_IDLE, O_PIPE, O_PODS, O_GPUX, O_AFF_CNT,
   O_AFF_TOT, O_ANTI_CNT, O_DONE, O_POPPED, O_JREADY, O_JPIPE, O_CURSOR,
   O_ACOUNT, O_JALLOC, O_QALLOC, O_POPS, O_PROG,
-  SCRATCH,
+  SCRATCH, STAMPS,
   N_PTRS
 };
 
@@ -128,6 +128,7 @@ struct Args {
   float* qalloc;  // [Q, R]
   int* pops_o;
   int* prog_o;
+  long long* stamps;  // [N_STAMPS] or null: the phase split
   int C, KP, M, J, Q, S, NH, gang, drf_ns, nkeys, has_aff;
   int keys[MAX_KEYS];
 };
@@ -202,6 +203,18 @@ __device__ float key_value(const Args& a, int code, int j, const float* qshare,
   return 0.0f;  // no such code: the wrapper's key plan never sends one
 }
 
+// the phase split (optional): clock64() cycles of each phase summed over
+// the launch's pops, the launch's cycles and globaltimer nanoseconds, pops
+enum Phase { PH_PROLOGUE, PH_GATE_FOLD, PH_ELIG, PH_ARGMIN, PH_ATTEMPTS,
+             PH_FINALIZE, N_PHASES };
+constexpr int N_STAMPS = N_PHASES + 3;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 __global__ void __launch_bounds__(BLOCK)
     dyn_placer_kernel(const __grid_constant__ Args a) {
   const float EPS_CMP = static_cast<float>(1e-6);
@@ -232,6 +245,18 @@ __global__ void __launch_bounds__(BLOCK)
   __shared__ int s_stopped, s_broke, s_nalloc, s_npipe, s_nadv, s_nsave,
       s_keep, s_ready, s_pipelined;
   __shared__ int kept_any, prog, pops;
+  const bool stamp_on = a.stamps != nullptr && tid == 0;
+  long long ph[N_PHASES] = {};
+  const long long clk0 = stamp_on ? clock64() : 0;
+  const unsigned long long ns0 = stamp_on ? global_ns() : 0;
+  long long clk_last = clk0;
+  auto stamp = [&](int phase) {
+    if (stamp_on) {
+      const long long now = clock64();
+      ph[phase] += now - clk_last;
+      clk_last = now;
+    }
+  };
 
   if (aff && tid == 0)
     aff_bind(as, reinterpret_cast<int*>(ns_share + S), ae);
@@ -260,6 +285,7 @@ __global__ void __launch_bounds__(BLOCK)
     pops = 0;
   }
   __syncthreads();
+  stamp(PH_PROLOGUE);
 
   const int kmax = a.kmax[0];
   for (int p = 0; p < a.KP; ++p) {
@@ -297,6 +323,7 @@ __global__ void __launch_bounds__(BLOCK)
       }
       ns_share[tid] = share / fmaxf(a.nsw[tid], 1.0f);
     }
+    stamp(PH_GATE_FOLD);
 
     // ---- eligibility into a per-thread bitmask --------------------------
     unsigned bits = 0u;
@@ -321,6 +348,7 @@ __global__ void __launch_bounds__(BLOCK)
       const float mx = block_reduce(qmx, MaxF(), red_f, &out_f);
       guard = mn != mx;
     }
+    stamp(PH_ELIG);
 
     // ---- lexicographic argmin over the eligible jobs (pops after 0) ----
     int jsel = J;
@@ -349,6 +377,7 @@ __global__ void __launch_bounds__(BLOCK)
         }
       jsel = block_reduce(lo, MinI(), red_i, &out_i);
     }
+    stamp(PH_ARGMIN);
 
     // ---- the pop and its stop rules (thread 0) ---------------------------
     if (tid == 0) {
@@ -374,6 +403,7 @@ __global__ void __launch_bounds__(BLOCK)
       s_nsave = 0;
     }
     __syncthreads();
+    stamp(PH_FINALIZE);
     if (p_stop) break;
 
     // ---- the section: slots from the job's cursor on ---------------------
@@ -419,6 +449,8 @@ __global__ void __launch_bounds__(BLOCK)
       }
       __syncthreads();
     }
+
+    stamp(PH_ATTEMPTS);
 
     // ---- gang finalize and the key-state commit (thread 0) --------------
     const int lo = off + p_cur0, hi = off + M;
@@ -471,17 +503,26 @@ __global__ void __launch_bounds__(BLOCK)
       pops += 1;
     }
     __syncthreads();
+    stamp(PH_FINALIZE);
   }
   if (tid == 0) {
     a.pops_o[0] = pops;
     a.prog_o[0] = prog;
+  }
+  if (stamp_on) {
+    stamp(PH_FINALIZE);
+    for (int k = 0; k < N_PHASES; ++k) a.stamps[k] = ph[k];
+    a.stamps[N_PHASES] = clock64() - clk0;
+    a.stamps[N_PHASES + 1] = static_cast<long long>(global_ns() - ns0);
+    a.stamps[N_PHASES + 2] = pops;
   }
 }
 
 }  // namespace
 
 // ptrs: the inputs in the order of dyn_placer.DynArgs, then the 20
-// outputs, then the [2, N] scratch (null where a part is off); dims: see
+// outputs, then the [2, N] scratch and the int64 [N_STAMPS] phase split
+// (null where a part is off); dims: see
 // Dim, then the key plan; weights: binpack, least, most, balanced, pod
 // affinity.
 extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
@@ -562,6 +603,7 @@ extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
   a.qalloc = FO(O_QALLOC);
   a.pops_o = IO(O_POPS);
   a.prog_o = IO(O_PROG);
+  a.stamps = static_cast<long long*>(ptrs[STAMPS]);
   a.C = C;
   a.KP = KP;
   a.M = M;

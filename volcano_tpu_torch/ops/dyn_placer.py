@@ -437,9 +437,16 @@ def _library():
 
 #: outputs of the C launcher, after the inputs (absent ones as null)
 N_OUTS = 20
-#: number of pointer arguments of the C launcher: the inputs, the outputs
-#: and the affinity scratch rows
-N_PTRS = len(DynArgs._fields) + N_OUTS + 1
+#: number of pointer arguments of the C launcher: the inputs, the outputs,
+#: the affinity scratch rows and the phase split
+N_PTRS = len(DynArgs._fields) + N_OUTS + 2
+#: the phases of a launch that its optional phase split times (the
+#: source's Phase), and the int64 words of the split: the phases' clock64()
+#: cycles summed over the launch's pops, the launch's cycles, its
+#: globaltimer nanoseconds and its pops
+PHASES = ("prologue", "gate_fold", "eligibility", "argmin", "attempts",
+          "finalize")
+N_STAMPS = len(PHASES) + 3
 #: order of the integer dimensions and flags of the C launcher; the key
 #: plan follows
 DIMS = ("C", "KP", "M", "N", "R", "G", "GR", "J", "Q", "S", "NH", "NKS",
@@ -493,8 +500,22 @@ def _check(cfg, C, KP, M, a: DynArgs):
     return plan
 
 
-def dyn_place_cuda(cfg, C: int, KP: int, M: int, args):
-    """Launch the CUDA kernel on the current stream (no synchronisation)."""
+def phase_split(stamps: torch.Tensor) -> dict:
+    """Microseconds of each phase of the launch that wrote ``stamps``: its
+    clock64() cycles scaled by the launch's nanoseconds per cycle (the
+    globaltimer over clock64() across the whole launch)."""
+    v = stamps.tolist()
+    cycles, ns, pops_ = v[len(PHASES)], v[len(PHASES) + 1], v[len(PHASES) + 2]
+    us = ns / 1000.0 / max(cycles, 1)
+    return dict({ph: v[k] * us for k, ph in enumerate(PHASES)},
+                launch_us=ns / 1000.0, cycles=cycles, pops=pops_)
+
+
+def dyn_place_cuda(cfg, C: int, KP: int, M: int, args,
+                   stamps: Optional[torch.Tensor] = None):
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+    ``stamps``, an int64 [N_STAMPS] tensor on the card, receives the
+    launch's phase split (:func:`phase_split`)."""
     global launches, aff_launches
     a = unpack_args(cfg, args)
     if not a.idle.is_cuda:
@@ -527,9 +548,13 @@ def dyn_place_cuda(cfg, C: int, KP: int, M: int, args):
     outs += [torch.empty((1, 1), **i32), torch.empty((1, 1), **i32)]
     scratch = (torch.empty((2, N), dtype=torch.float32, device=dev)
                if ad["aff"] else None)
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.shape != (N_STAMPS,)
+                               or stamps.device != dev):
+        raise ValueError(f"stamps: expected int64 [{N_STAMPS}] on {dev}")
     ptrs = (ctypes.c_void_p * N_PTRS)(*[
         t.data_ptr() if t is not None else None
-        for t in list(a) + outs + [scratch]])
+        for t in list(a) + outs + [scratch, stamps]])
     dims = dict(C=C, KP=KP, M=M, N=N, R=R, G=G, GR=a.orfeas.shape[0], J=J,
                 Q=Q, S=S, NH=NH, NKS=a.skeys.shape[0],
                 gang=int(bool(cfg.enable_gang)),
