@@ -28,9 +28,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    least time the card could take; and one cluster exchange alone (CUDA
    events around a probe of 20,000), which times the attempts give the
    design's latency floor;
-7. dynamic-key placer against its plain version, bitwise: the first 3
-   launches of check B's cycle, and small built inputs for a gang discard
-   and demotion, a zero-deserved queue, drf with 3 namespaces, GPU
+7. dynamic-key placer against its plain version, bitwise, as a
+   thread-block cluster of its default size (``dyn_placer.CLUSTER``) and of
+   the other (16 and 8 blocks): the first 3 launches of check B's cycle,
+   and small built inputs (``ops/dyn_cases.py`` DYN_CASES) for a gang
+   discard and demotion, a zero-deserved queue, drf with 3 namespaces, GPU
    requests, the hdrf guard, a short pop budget, padded candidates and
    the sla deadline key; and the segmented sum (the cycle's drf
    namespace fold, once a round) against its plain version, bitwise, on
@@ -48,17 +50,27 @@ Phases, each of which fails the run (exit code 1) when it fails:
    launched; fingerprint
    f2d84749323295e1, 16,530 tasks placed, 1,330 jobs ready;
 10. checks C and D: the shipped conf at (1024, 640, 16), kernel cycle and
-   plain cycle on the card, both 3ae3ff8ac7b0b9b7; and at the north-star
-   size, ca79ec8f9cd6b7f6 with 16 tasks placed (every queue's deserved is
-   0 there: the reference's proportion sentinel, ROADMAP section 3 (d));
-11. dynamic-key placer and segmented sum times at check B's shapes, as
-   phase 6, with ``index_add_`` as the segmented sum's library call;
+   plain cycle on the card, both 3ae3ff8ac7b0b9b7, with equal dynamic-key
+   launches (the plain cycle's placer calls), pops and early stops; and at
+   the north-star size, ca79ec8f9cd6b7f6 with 16 tasks placed (every
+   queue's deserved is 0 there: the reference's proportion sentinel,
+   ROADMAP section 3 (d));
+11. dynamic-key placer and segmented sum times at check B's shapes: the
+   placer at check B's first launch as clusters of 16 and of 8 blocks, two
+   runs each (its device time per launch in a ``torch.profiler`` trace,
+   and CUDA events around the run, which time the wrapper's host work),
+   and its phase split at each size (``dyn_placer.phase_split``: block 0's
+   clock64() cycles of the prologue, the queue gate and namespace fold,
+   eligibility, the argmin with its exchange, the section's attempts and
+   the finalize); the segmented sum with CUDA events, with ``index_add_``
+   as its library call;
 12. the pod-affinity step (kernel 2 of the reference) in both placers
    against the plain versions, bitwise: the first 3 launches of check E's
    cycle, and small built inputs (``ops/dyn_cases.py`` AFF_CASES) for the
    first-pod escape, own and symmetric anti-affinity, negative preferred
    weights, no live node, a gang discard that must take the counts back,
-   in the round placer and in the dynamic-key placer with drf;
+   in the round placer and in the dynamic-key placer with drf (at both of
+   its cluster sizes);
 13. check E, this slice's main path: ``Session(affinity_scenario(10000,
    2500), gang + predicates + binpack).run_allocate()``, BASELINE
    configuration 5 (10,000 nodes in 16 zones and 500 racks, 2,500 gangs of
@@ -73,7 +85,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``Session(affinity_scenario(1024, 320, seed=1), the shipped
    conf).run_allocate()``: the dynamic-key placer must have launched with
    pod affinity on, and the kernel cycle and the plain cycle on the card
-   both give 07085317a58495b3, the JAX Session's;
+   both give 07085317a58495b3, the JAX Session's, with equal launches,
+   pops and early stops;
 15. the pod-affinity step's own time: CUDA events around the round placer
    (at its cycle's cluster size) at check E's shapes, and the dynamic-key
    placer at check F's, with pod affinity on and off, beside the plain
@@ -138,8 +151,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    and find nothing in the launch records of check H's cycle (phase 18, 4
    shards) and check J's binpack cycle at W = 4 (phase 22), which must not
    be empty; then kernel 6's time for the fixture's 4 launches (CUDA
-   events), beside the plain version's, ``torch.mul`` on the gathered
-   block (the library call) and the bound;
+   events; the best of three runs, alternated with the others), beside
+   the plain version's, ``torch.mul`` on the gathered block (the library
+   call) and the bound;
 25. check K, the shipped conf's whole action list:
    ``Session(admission_scenario(), check K's conf, now=4149.0)`` and
    ``get_action(name).execute(ssn)`` for enqueue, allocate and backfill:
@@ -152,9 +166,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    fingerprint and binds, and the backfill count and binds must be the JAX
    Session's; then the dynamic-key kernel's first 3 launches on the
    allocate cycle's own inputs (the sla deadline an ordering key, the
-   snapshot repacked after enqueue), enqueue's 3 one-segment sums and the
-   cycle's namespace folds at check K's shapes, each against its plain
-   version, bitwise.
+   snapshot repacked after enqueue; at both cluster sizes), enqueue's 3
+   one-segment sums and the cycle's namespace folds at check K's shapes,
+   each against its plain version, bitwise.
 
 The expected fingerprints are the JAX package's scan path's (and, for A,
 B, D and the raw configuration-5 cycle, its oracle's too). Each phase's
@@ -498,6 +512,23 @@ def time_kernel(call, cb=None):
                 stats={k: v / plain_reps for k, v in stats.items()})
 
 
+def traced_device_ms(prof, name, reps):
+    """(mean device ms, count) of the launches of kernel ``name`` in a
+    ``torch.profiler`` trace of a run of ``reps`` of them. The trace may
+    keep fewer launches than ran (on an H100 it kept 169 to 189 of 200 of
+    kernel 5, 180 of 200 of kernel 4, 46 of 50 of kernel 3): the mean over
+    those it kept."""
+    import torch
+    dev = [(e.time_range.end - e.time_range.start) / 1000
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and name in e.name]
+    if not 0 < len(dev) <= reps:
+        raise RuntimeError(f"the trace holds {len(dev)} {name} launches "
+                           f"of {reps}")
+    return sum(dev) / len(dev), len(dev)
+
+
 def time_exchange(cb, iters=20000):
     """Microseconds of one cluster exchange of ``cb`` blocks alone (write a
     slot, one cluster barrier, read the cb slots, merge): CUDA events
@@ -519,20 +550,31 @@ def time_exchange(cb, iters=20000):
     return (ms[iters] - ms[1]) * 1000 / (iters - 1)
 
 
-def compare_dyn_kernel_plain(calls):
-    """As compare_kernel_plain, for the dynamic-key placer."""
+def dyn_cbs():
+    """The dynamic-key placer's cluster sizes: its default, then the other
+    of 16 and 8."""
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    return (dp.CLUSTER, 8 if dp.CLUSTER == 16 else 16)
+
+
+def compare_dyn_kernel_plain(calls, cbs=None):
+    """As compare_kernel_plain, for the dynamic-key placer, as a cluster of
+    each of ``cbs`` blocks (its default and the other when not given)."""
     import torch
 
     from volcano_tpu_torch.ops import dyn_placer as dp
     worst = 0.0
     for cfg, C, KP, M, args in calls:
-        got = dp.dyn_place_cuda(cfg, C, KP, M, args)
         want = dp.dyn_place_plain(cfg, C, KP, M, args)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            worst = max(worst, float((g.double() - w.double()).abs().max()))
-            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-                raise AssertionError("dyn kernel and plain version differ")
+        for cb in cbs or dyn_cbs():
+            got = dp.dyn_place_cuda(cfg, C, KP, M, args, cb=cb)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                worst = max(worst,
+                            float((g.double() - w.double()).abs().max()))
+                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                    raise AssertionError(f"dyn kernel (CB={cb}) and plain "
+                                         f"version differ")
     return worst
 
 
@@ -565,25 +607,36 @@ def ops_per_pop(cfg, a, nkeys):
             + J * (2 * Q + 3 * R + S + 4) + S * R * J * 2)
 
 
-def time_dyn_kernel(call):
-    """Dynamic-key kernel ms per launch (CUDA events), plain version ms per
-    call, and the least time for the same work on this card."""
+def time_dyn_kernel(call, cb=None):
+    """Dynamic-key kernel ms per launch as a cluster of ``cb`` blocks (the
+    cycle's, ``dyn_placer.CLUSTER``, when not given), plain version ms per
+    call, and the least time for the same work on this card.
+
+    The wrapper's host work per launch (argument checks, allocations, the
+    pointer array) takes longer than the kernel since the kernel became a
+    cluster, so CUDA events around a run of launches time the host
+    (``events_ms``); the kernel's own time (``ms``) is its device time per
+    launch in a ``torch.profiler`` trace of the same run."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from volcano_tpu_torch.ops import dyn_placer as dp
     cfg, C, KP, M, args = call
+    cb = dp.CLUSTER if cb is None else cb
     for _ in range(3):
-        dp.dyn_place_cuda(cfg, C, KP, M, args)
+        dp.dyn_place_cuda(cfg, C, KP, M, args, cb=cb)
     torch.cuda.synchronize()
     reps = 50
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = dp.dyn_place_cuda(cfg, C, KP, M, args)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            out = dp.dyn_place_cuda(cfg, C, KP, M, args, cb=cb)
+        end.record()
+        torch.cuda.synchronize()
+    events_ms = start.elapsed_time(end) / reps
+    ms, traced = traced_device_ms(prof, "dyn_placer_kernel", reps)
     stats = {}
     dp.dyn_place_plain(cfg, C, KP, M, args, stats={})   # warm-up
     torch.cuda.synchronize()
@@ -605,10 +658,48 @@ def time_dyn_kernel(call):
     ops = (attempts * N * ops_per_node(cfg, R, G)
            + pops * ops_per_pop(cfg, a, len(plan)))
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+    return dict(cb=cb, ms=ms, traced=traced, events_ms=events_ms,
+                plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 attempts=attempts, pops=pops, bytes=nbytes, ops=ops,
                 stats={k: v / plain_reps for k, v in stats.items()})
+
+
+def dyn_phase_split(call, cb, reps=20):
+    """Kernel 3's phase split at one launch as a cluster of ``cb`` blocks
+    (``dyn_placer.phase_split``, microseconds of each phase from block 0's
+    clock64() stamps), averaged over ``reps`` launches."""
+    import torch
+
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    cfg, C, KP, M, args = call
+    stamps = torch.zeros(dp.N_STAMPS, dtype=torch.int64, device="cuda")
+    splits = []
+    for _ in range(reps):
+        dp.dyn_place_cuda(cfg, C, KP, M, args, cb=cb, stamps=stamps)
+        torch.cuda.synchronize()
+        splits.append(dp.phase_split(stamps))
+    return {k: sum(s[k] for s in splits) / reps for k in splits[0]}
+
+
+class CountingPlain:
+    """Dynamic-key placer seam of a plain cycle: the plain version, its
+    calls counted."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, *args):
+        from volcano_tpu_torch.ops import dyn_placer as dp
+        self.calls += 1
+        return dp.dyn_place_plain(*args)
+
+
+def cycle_counts(launches):
+    """A cycle's dynamic-key launches (given), pops and early stops."""
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    return dict(launches=launches, pops=dp.pops, early_stops=dp.early_stops)
 
 
 def seg_fold_calls(ssn, dyn_calls):
@@ -896,14 +987,7 @@ def time_shard_kernel(call, geometry=None):
         end.record()
         torch.cuda.synchronize()
     events_ms = start.elapsed_time(end) / reps
-    dev = [(e.time_range.end - e.time_range.start) / 1000
-           for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and "shard_cand_kernel" in e.name]
-    if len(dev) != reps:
-        raise RuntimeError(f"the trace holds {len(dev)} kernel launches, "
-                           f"not {reps}")
-    ms = sum(dev) / reps
+    ms, traced = traced_device_ms(prof, "shard_cand_kernel", reps)
     sp.shard_candidates_plain_all(cfg, D, args)        # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -920,7 +1004,8 @@ def time_shard_kernel(call, geometry=None):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     rows = threads * rpt
     return dict(D=D, NL=N // D, threads=threads, ROWS=rows,
-                B=sp.row_blocks(N // D, rows), ms=ms, events_ms=events_ms,
+                B=sp.row_blocks(N // D, rows), ms=ms, traced=traced,
+                events_ms=events_ms,
                 plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1018,16 +1103,7 @@ def time_wave_kernel(call):
         end.record()
         torch.cuda.synchronize()
     events_ms = start.elapsed_time(end) / reps
-    dev = [(e.time_range.end - e.time_range.start) / 1000
-           for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and "shard_wave_kernel" in e.name]
-    # the trace may keep fewer launches than ran (on an H100 it kept 169
-    # to 189 of 200): the device time is the mean over those it kept
-    if not 0 < len(dev) <= reps:
-        raise RuntimeError(f"the trace holds {len(dev)} kernel launches "
-                           f"of {reps}")
-    ms = sum(dev) / len(dev)
+    ms, traced = traced_device_ms(prof, "shard_wave_kernel", reps)
     sw.shard_wave_plain_all(cfg, D, C, args)          # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1045,7 +1121,7 @@ def time_wave_kernel(call):
     nbytes = sw.bound_bytes(cfg, N, R, G, W, C, D, templates, groups)
     ops = W * N * (ops_per_node(cfg, R, G) + 2)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(D=D, NL=N // D, W=W, C=C, ms=ms, traced=len(dev),
+    return dict(D=D, NL=N // D, W=W, C=C, ms=ms, traced=traced,
                 events_ms=events_ms,
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1251,7 +1327,8 @@ def main():
         built = dyn_built_calls()
         dyn_err = compare_dyn_kernel_plain(b_calls + built)
         log(json.dumps({"phase": "dyn_kernel_vs_plain", "launches_compared":
-                        len(b_calls + built), "max_abs_err": dyn_err}))
+                        len(b_calls + built), "cluster_blocks": dyn_cbs(),
+                        "max_abs_err": dyn_err}))
         sf_calls = seg_fold_calls(ssn_b, b_calls)
         sf_err = compare_seg_fold_plain(sf_calls)
         log(json.dumps({"phase": "seg_fold_vs_plain", "calls_compared":
@@ -1329,11 +1406,14 @@ def main():
         k_packed = k_res.packed_decisions().cpu()
         k_ms = (time.perf_counter() - t0) * 1000
         counts_c = dyn_counts()
+        kernel_c = cycle_counts(dp.launches)
+        zero_dyn_counts()
+        plain_seam = CountingPlain()
         t0 = time.perf_counter()
-        p_res = make_allocate_cycle(cfg, dyn_placer=dp.dyn_place_plain)(
-            s_d, e_d)
+        p_res = make_allocate_cycle(cfg, dyn_placer=plain_seam)(s_d, e_d)
         p_packed = p_res.packed_decisions().cpu()
         p_ms = (time.perf_counter() - t0) * 1000
+        plain_c = cycle_counts(plain_seam.calls)
         sha_c = fingerprint(k_res.task_node.cpu(), k_res.task_mode.cpu())
         ssn_d = Session(_synthetic_cluster(*FULL), shipped, device="cuda")
         zero_dyn_counts()
@@ -1343,11 +1423,16 @@ def main():
         placed_d = int((res.task_mode > 0).sum())
         log(json.dumps({"phase": "checks_C_D", "C_kernel_cycle_ms": k_ms,
                         "C_plain_cycle_ms": p_ms, "C_counts": counts_c,
+                        "C_kernel_cycle": kernel_c,
+                        "C_plain_cycle": plain_c,
                         "C_fingerprint": sha_c,
                         "D_cycle_ms": ssn_d.stats["cycle_ms"],
                         "D_counts": dyn_counts(), "D_placed": placed_d,
                         "D_fingerprint": sha_d}))
         assert torch.equal(k_packed, p_packed), "C: kernel and plain differ"
+        assert kernel_c == plain_c, ("C: launches, pops, early stops",
+                                     kernel_c, plain_c)
+        assert kernel_c["launches"] > 0
         assert sha_c == CHECK_C, f"C: fingerprint {sha_c} != {CHECK_C}"
         assert (sha_d, placed_d) == CHECK_D, (sha_d, placed_d)
     except Exception as e:
@@ -1356,8 +1441,18 @@ def main():
     # ---- 11. dynamic-key placer and segmented sum times, check B's shapes
     clock.lap('11 dyn_times')
     try:
-        t = time_dyn_kernel(b_calls[0])
-        log(json.dumps({"phase": "dyn_kernel_time", **t}))
+        times = {}
+        for cb in dyn_cbs() * 2:
+            t = time_dyn_kernel(b_calls[0], cb)
+            log(json.dumps({"phase": "dyn_kernel_time", **t}))
+            times.setdefault(cb, []).append(t)
+        for cb in dyn_cbs():
+            log(json.dumps({
+                "phase": "dyn_phase_split", "launch": "check_B_first",
+                "cb": cb, "ms_runs": [r["ms"] for r in times[cb]],
+                "events_ms_runs": [r["events_ms"] for r in times[cb]],
+                "split_us": dyn_phase_split(b_calls[0], cb)}))
+        t = min(times[dp.CLUSTER], key=lambda r: r["ms"])
         kernels.append({
             "name": "dyn_placer", "route": "cuda",
             "source": "volcano_tpu_torch/csrc/dyn_placer.cu",
@@ -1477,14 +1572,19 @@ def main():
         sha_f = fingerprint(res.task_node, res.task_mode)
         placed = int((res.task_mode > 0).sum())
         ready = int(res.job_ready.sum())
+        zero_dyn_counts()
         t0 = time.perf_counter()
         k_packed = make_allocate_cycle(cfg)(s_d, e_d).packed_decisions().cpu()
         k_ms = (time.perf_counter() - t0) * 1000
+        kernel_f = cycle_counts(dp.launches)
+        zero_dyn_counts()
+        plain_seam = CountingPlain()
         t0 = time.perf_counter()
         p_packed = make_allocate_cycle(
             cfg, placer=rp.round_place_plain,
-            dyn_placer=dp.dyn_place_plain)(s_d, e_d).packed_decisions().cpu()
+            dyn_placer=plain_seam)(s_d, e_d).packed_decisions().cpu()
         p_ms = (time.perf_counter() - t0) * 1000
+        plain_f = cycle_counts(plain_seam.calls)
         T_f = ssn_f.snap.tasks.status.shape[0]
         sha_k = fingerprint(k_packed[:T_f].numpy(),
                             k_packed[T_f:2 * T_f].numpy())
@@ -1494,11 +1594,15 @@ def main():
                         "run_allocate_ms": session_f_ms, **counts_f,
                         "placed": placed, "jobs_ready": ready,
                         "fingerprint": sha_f, "kernel_cycle_ms": k_ms,
-                        "plain_cycle_ms": p_ms,
+                        "plain_cycle_ms": p_ms, "kernel_cycle": kernel_f,
+                        "plain_cycle": plain_f,
                         "kernel_cycle_fingerprint": sha_k}))
         assert counts_f["aff_launches"] > 0, \
             "check F launched no dynamic-key placer with pod affinity"
         assert torch.equal(k_packed, p_packed), "F: kernel and plain differ"
+        assert kernel_f == plain_f, ("F: launches, pops, early stops",
+                                     kernel_f, plain_f)
+        assert kernel_f["launches"] > 0
         assert (sha_f, placed, ready) == f_want, (sha_f, placed, ready)
         assert sha_k == f_want[0], f"F: kernel cycle gave {sha_k}"
     except Exception as e:
@@ -1828,7 +1932,8 @@ def main():
         calls = dict(kernel=gs.planted_double_cuda,
                      plain=gs.planted_double_plain,
                      library=lambda t: torch.mul(t, 2.0))
-        for name in ("plain", "kernel", "library", "kernel", "plain"):
+        for name in ("plain", "kernel", "library", "library", "kernel",
+                     "kernel", "library", "plain"):
             fn = calls[name]
             for _ in range(3):
                 fn(full)

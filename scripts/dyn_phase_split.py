@@ -7,12 +7,13 @@ Records the arguments of check B's first launch (``chip_smoke.py``'s
 phase 7: the bench's configuration 3 under the shipped conf) and of check
 K's first launch (phase 25: ``admission_scenario()`` under check K's conf
 after the enqueue action), then for each launch and each cluster size of
-``--cb`` (the kernel's default when none is given):
+``--cb`` (16 and 8 when not given):
 
-- the launch's time with CUDA events over ``--reps`` launches, the phase
-  split off;
-- the phase split (``dyn_placer.phase_split``): the clock64() cycles of
-  each phase of the launch (prologue, queue gate and namespace fold,
+- the launch's device time in a ``torch.profiler`` trace and the CUDA
+  events around the same 50 launches (the wrapper's host work), the
+  phase split off (``chip_smoke.time_dyn_kernel``);
+- the phase split (``chip_smoke.dyn_phase_split``): the clock64() cycles
+  of each phase of the launch (prologue, queue gate and namespace fold,
   eligibility, argmin, the section's attempts, finalize), summed over its
   pops and scaled to microseconds by the launch's globaltimer
   nanoseconds per cycle, averaged over ``--reps`` launches.
@@ -52,45 +53,26 @@ def launches():
 
 
 def measure(call, cb, reps):
-    import torch
-
+    """The launch's device time, host-bound event time and phase split as
+    a cluster of ``cb`` blocks (``chip_smoke.py`` phase 11's helpers)."""
+    import chip_smoke
     from volcano_tpu_torch.ops import dyn_placer as dp
+    t = chip_smoke.time_dyn_kernel(call, cb)
     cfg, C, KP, M, args = call
-    kw = {} if cb is None else dict(cb=cb)
-
-    def launch(**more):
-        return dp.dyn_place_cuda(cfg, C, KP, M, args, **kw, **more)
-
-    for _ in range(3):
-        launch()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        launch()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
-    stamps = torch.zeros(dp.N_STAMPS, dtype=torch.int64, device="cuda")
-    splits = []
-    for _ in range(reps):
-        launch(stamps=stamps)
-        torch.cuda.synchronize()
-        splits.append(dp.phase_split(stamps))
-    split = {k: sum(s[k] for s in splits) / reps for k in splits[0]}
     a = dp.unpack_args(cfg, args)
     R, N = a.idle.shape
     shape = dict(C=C, KP=KP, M=M, N=N, R=R, J=a.cslot.shape[1],
                  Q=a.qoh.shape[0],
                  S=a.nsm.shape[0] if a.nsm is not None else 0,
                  NKS=a.skeys.shape[0])
-    return dict(cb=cb, ms=ms, split_us=split, shape=shape)
+    return dict(cb=cb, ms=t["ms"], events_ms=t["events_ms"],
+                split_us=chip_smoke.dyn_phase_split(call, cb, reps),
+                shape=shape)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cb", type=int, nargs="*", default=[None])
+    ap.add_argument("--cb", type=int, nargs="+", default=[16, 8])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out")
     opts = ap.parse_args(argv)

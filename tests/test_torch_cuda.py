@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 round placer (with and without its pod-affinity step, as clusters of 8 and
-16 blocks), the pod-affinity step in the dynamic-key placer, the segmented
+16 blocks), the dynamic-key placer as clusters of 8 and 16 blocks (with
+and without its pod-affinity step, up to the most jobs its shared memory
+takes), the segmented
 sum, the shard-local candidate search (per-shard outputs and the combined
 triple, at every block shape of its grid) and its wide (wavefront) form,
 and kernel 6 (graphcheck's planted shard gather); the sharded cycle's
@@ -19,7 +21,7 @@ import dataclasses
 import pytest
 import torch
 
-from torch_fixtures import (AFF_CASES, CASES, PLACER_WEIGHTS,
+from torch_fixtures import (AFF_CASES, CASES, DYN_CASES, PLACER_WEIGHTS,
                             aff_placer_knobs, make_dyn_inputs, make_inputs)
 from volcano_tpu_torch.ops import dyn_placer as dp
 from volcano_tpu_torch.ops import round_placer as rp
@@ -222,6 +224,129 @@ def test_kernels_reject_wrong_affinity_layout():
     with pytest.raises(ValueError, match="contiguous"):
         dp.dyn_place_cuda(dcfg, 4, 12, 4, [x for x in bad if x is not None])
     assert rp.launches == before
+
+
+# ---- kernel 3 as a thread-block cluster --------------------------------------
+
+#: dynamic-key placer inputs for the cluster, beside every DYN_CASE and
+#: AFF_CASE: a ragged last job slice (J = 1000 is 63 jobs a block at 16
+#: blocks, the last 55; 200 nodes, 13 a block, the last 5) under the drf
+#: namespace fold over 3 namespaces; more jobs a block than threads (the
+#: fold's compaction and the eligibility bitmask in several rounds); the
+#: hdrf guard and the sla deadline key over slices; a gang discarded with
+#: pod affinity
+DYN_CLUSTER_CASES = {
+    "ragged_last_slice": dict(drf_job_order=True, drf_ns_order=True, S=3,
+                              J=1000, N=200),
+    "jobs_past_the_threads": dict(drf_job_order=True, drf_ns_order=True,
+                                  S=3, J=10000, N=200),
+    "hdrf_guard": dict(DYN_CASES["hdrf_guard"], J=300, N=200),
+    "sla_deadline": dict(DYN_CASES["sla_deadline"], J=300, N=200),
+    "gang_discard_affinity": dict(drf_job_order=True, tight=True, N=200,
+                                  aff=AFF_CASES["gang_discard"],
+                                  **aff_placer_knobs("gang_discard")),
+}
+
+
+def dyn_cluster_inputs(case):
+    if case in DYN_CLUSTER_CASES:
+        return DYN_CLUSTER_CASES[case]
+    if case in DYN_CASES:
+        return DYN_CASES[case]
+    aff = case[len("aff_"):]
+    return dict(drf_job_order=True, aff=AFF_CASES[aff],
+                **aff_placer_knobs(aff))
+
+
+def check_dyn_cluster(cfg, t, cb):
+    want = dp.dyn_place_plain(cfg, 4, 12, 4, t)
+    before = dp.launches
+    got = dp.dyn_place_cuda(cfg, 4, 12, 4, t, cb=cb)
+    torch.cuda.synchronize()
+    assert dp.launches == before + 1
+    assert_same(got, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("case", sorted(DYN_CASES) + sorted(DYN_CLUSTER_CASES)
+                         + [f"aff_{c}" for c in sorted(AFF_CASES)])
+def test_dyn_cluster_kernel_matches_plain_bitwise(case, cb):
+    need_card()
+    pops = []
+    for seed in (0, 1, 2):
+        flags, args = make_dyn_inputs(seed, **dyn_cluster_inputs(case))
+        cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+        want = check_dyn_cluster(cfg, [torch.from_numpy(a).cuda()
+                                       for a in args], cb)
+        pops.append(int(want[-2][0, 0]))
+    assert max(pops) >= 1, pops
+
+
+def dyn_max_jobs(cfg, t, cb):
+    """The wrapper's job limit at the shapes of the launch ``t``."""
+    a = dp.unpack_args(cfg, t)
+    R, N, _, C, _, Q, S, NH, G = dp._shapes(a)
+    P = S * R if cfg.drf_ns_order else 0
+    ad = rp.aff_dims(a)
+    return dp.max_jobs(N, cb, C, 4, R, G, Q, S, P, a.skeys.shape[0], NH,
+                       ad["SK"], rp.aff_list_ints(ad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cb", [8, 16])
+def test_dyn_cluster_kernel_at_the_most_jobs(cb):
+    """J at the wrapper's limit runs and matches; one more job raises."""
+    need_card()
+    kw = dict(drf_job_order=True, N=200)
+    flags, small = make_dyn_inputs(0, **kw)
+    cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+    jmax = dyn_max_jobs(cfg, [torch.from_numpy(a) for a in small], cb)
+    assert jmax > 10000
+    for J in (jmax, jmax + 1):
+        _, args = make_dyn_inputs(0, J=J, **kw)
+        t = [torch.from_numpy(a).cuda() for a in args]
+        if J == jmax:
+            check_dyn_cluster(cfg, t, cb)
+        else:
+            with pytest.raises(ValueError, match=f"J <= {jmax}"):
+                dp.dyn_place_cuda(cfg, 4, 12, 4, t, cb=cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cb", [8, 16])
+def test_dyn_cluster_launches_alternate_shared_sizes(cb):
+    """The launcher sets a kernel's shared-memory attribute and asks for
+    the card's verdict once a shape: a large launch, a small one and the
+    large one again, each bitwise against the plain version."""
+    need_card()
+    kw = dict(drf_job_order=True, N=200)
+    flags, small = make_dyn_inputs(0, **kw)
+    cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+    jmax = dyn_max_jobs(cfg, [torch.from_numpy(a) for a in small], cb)
+    _, large = make_dyn_inputs(0, J=jmax, **kw)
+    for args in (large, small, large, small):
+        check_dyn_cluster(cfg, [torch.from_numpy(a).cuda() for a in args],
+                          cb)
+
+
+@pytest.mark.cuda
+def test_dyn_cluster_phase_split():
+    """The optional phase split: every phase's cycles, the launch's, its
+    nanoseconds and pops; a wrong row raises before the launch."""
+    need_card()
+    flags, args = make_dyn_inputs(1, **DYN_CASES["drf_ns3"])
+    cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+    t = [torch.from_numpy(a).cuda() for a in args]
+    stamps = torch.zeros(dp.N_STAMPS, dtype=torch.int64, device="cuda")
+    got = dp.dyn_place_cuda(cfg, 4, 12, 4, t, stamps=stamps)
+    split = dp.phase_split(stamps)
+    assert split["pops"] == int(got[-2][0, 0]) >= 1
+    assert split["cycles"] >= sum(stamps[:len(dp.PHASES)].tolist()) > 0
+    assert split["launch_us"] > 0
+    with pytest.raises(ValueError, match="stamps"):
+        dp.dyn_place_cuda(cfg, 4, 12, 4, t, stamps=stamps.int())
 
 
 # ---- the segmented sum in row order (ops/seg_fold.py) ---------------------
@@ -557,7 +682,8 @@ def test_mesh_over_the_cards():
 # --------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 4), (10240, 4), (1000, 3), (1, 1)])
+@pytest.mark.parametrize("shape", [(32, 4), (10240, 4), (1000, 3), (1, 1),
+                                   (5, 3), (2049, 3)])
 def test_planted_kernel_matches_plain_bitwise(shape):
     need_card()
     from volcano_tpu_torch.analysis import sharding as gs
@@ -574,6 +700,31 @@ def test_planted_kernel_matches_plain_bitwise(shape):
         gs.planted_double_cuda(x.double())
     with pytest.raises(ValueError):
         gs.planted_double_cuda(torch.zeros(4, 3, device="cuda").t())
+    with pytest.raises(ValueError, match="CUDA device"):
+        gs.planted_double_cuda(x.cpu())
+
+
+@pytest.mark.cuda
+def test_planted_kernel_on_an_unaligned_block():
+    """A contiguous block whose storage does not start on 16 bytes, of
+    1,033 x 3 elements (a multiple neither of 4 nor of a block's 256
+    threads), against the plain version; and the raw stream handle the
+    wrapper launches on, on the default stream and on a side stream."""
+    need_card()
+    from volcano_tpu_torch.analysis import sharding as gs
+    from volcano_tpu_torch.ops._build import stream_handle
+    base = torch.randn(4000, generator=torch.Generator().manual_seed(5))
+    x = base.cuda()[1:1 + 1033 * 3].view(1033, 3)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got = gs.planted_double_cuda(x)
+    torch.cuda.synchronize()
+    want = gs.planted_double_plain(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    index = torch.cuda.current_device()
+    assert stream_handle(index) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert stream_handle(index) == side.cuda_stream != 0
 
 
 @pytest.mark.cuda

@@ -33,12 +33,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops import launch_record
+from ..ops._build import stream_handle
 from . import Finding
 
 #: launches of kernel 6 since the count was last set to 0
 launches = 0
 
 KERNEL = "planted_gather"
+_F32 = torch.float32
 
 
 def pallas_block_findings(records: Sequence[launch_record.Launch],
@@ -90,37 +92,40 @@ def planted_double_plain(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0
 
 
-_lib = None
+_launch = None
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library_launch():
+    """The C launcher of kernel 6, built and bound on first use. Bound as
+    a Python-API function: the call keeps the interpreter lock, which a
+    launch of a few microseconds does not need to give up."""
+    global _launch
+    if _launch is None:
         from ..ops._build import load
-        lib = load(KERNEL)
-        fn = lib.planted_double_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        _lib = lib
-    return _lib
+        proto = ctypes.PYFUNCTYPE(ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p)
+        _launch = proto(("planted_double_launch", load(KERNEL)))
+    return _launch
 
 
 def planted_double_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch kernel 6 on the current stream (no synchronisation)."""
+    """Launch kernel 6 on the current stream (no synchronisation). The
+    host path is one test of what the kernel takes, the output's
+    allocation and the call: the launch is a few microseconds of device
+    work, so the host sets its pace."""
     global launches
-    _check(x)
-    if not x.is_cuda:
-        raise ValueError(f"the kernel takes tensors on a CUDA device, not "
-                         f"{x.device}")
-    if x.numel() >= 2 ** 31:
-        raise ValueError(f"the kernel takes under 2^31 elements, got "
-                         f"{x.numel()}")
+    dev, n = x.get_device(), x.numel()
+    if not (dev >= 0 and x.dtype is _F32 and x.dim() == 2
+            and x.is_contiguous() and n < 2 ** 31):
+        _check(x)
+        if dev < 0:
+            raise ValueError(f"the kernel takes tensors on a CUDA device, "
+                             f"not {x.device}")
+        raise ValueError(f"the kernel takes under 2^31 elements, got {n}")
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _library().planted_double_launch(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        x.numel(), ctypes.c_void_p(stream))
+    rc = (_launch or _library_launch())(
+        x.data_ptr(), out.data_ptr(), n, stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"planted_double launch failed: CUDA error {rc}")
     launches += 1

@@ -8,34 +8,64 @@
 // function, the argument order and the key plan are in
 // volcano_tpu_torch/ops/dyn_placer.py.
 //
-// Design (simple and right first):
-// - One thread block of BLOCK threads runs the whole launch, because every
-//   pop reads the state the previous one committed. All state lives in
-//   global memory (L2): the node columns as in round_placer.cu, and the
-//   per-job rows [1, J] / [R, J] and queue allocations [Q, R], which the
-//   kernel first copies to its outputs and then updates in place.
-// - Per pop: threads q < Q compute each queue's overused flag and share;
-//   threads t < S*R fold the namespace allocations over the jobs in job
-//   order (the reference's sum over J, in the order the plain version
-//   takes); thread j (mod BLOCK) tests job j's eligibility into a per-thread
-//   bitmask (up to 32 jobs a thread). The lexicographic argmin is one block
-//   min-reduction per key column, each pass also dropping the jobs the
-//   previous column excluded, then a block min of the surviving indices.
-// - Pop 0 takes the launch's first candidate. Thread 0 checks the stop
-//   rules, then the M-slot section runs through the shared placement step
-//   of placement.cuh (with pod affinity: the affinity pass, the block
-//   argmax, thread 0 commits, the block adds the affinity rows), and
-//   thread 0 finalizes the gang (keep, or restore the saved columns newest
-//   first after the block took the section's affinity rows back), demotes
-//   kept-but-unready placements, and adds the committed resources, folded
-//   in slot order, to the job's and its queue's allocation once per pop (no
-//   atomics).
+// What bounds it: not bytes and not arithmetic (a launch moves about a
+// megabyte) but a serial chain per pop: the namespace fold, the job
+// selection and M dependent attempts, each a reduction with its barriers.
+// The earlier design, one block with all state in L2, spent on check B's
+// first pop about 170 us of namespace fold (S x R threads, each a chain
+// of J adds over two L2 reads), 29 of argmin (one block reduction per key
+// column), 12 of eligibility and 7 an attempt on an H100
+// (scripts/dyn_phase_split.py; PERF.md).
 //
-// What bounds it: as in round_placer.cu, a serial chain of dependent
-// block-wide reductions (per pop about ten key columns and M attempts)
-// with their barriers, run by one SM; bytes and arithmetic are far below
-// the card's rates. The namespace fold is a serial chain of J adds per
-// (namespace, dim).
+// Design: one thread-block cluster of CB blocks (8 or 16) of CBLOCK
+// threads, launched as kernel 1 is (placement.cuh launch_cluster).
+// - Block r owns the jobs [r * jcap, min((r + 1) * jcap, J)), jcap =
+//   ceil(J / CB), and keeps their rows in its shared memory for the whole
+//   launch: the static key rows, hdrf columns, queue one-hot, namespace
+//   rows, gang and eligibility inputs, and the live done, popped, ready,
+//   pipelined, cursor, allocation count and allocation [R]. It also owns
+//   the nodes [r * cap, ...), cap = ceil(N / CB), with their live state in
+//   shared memory, as kernel 1. The queue allocations [Q, R] are a replica
+//   in every block: each applies the same commits in the same order.
+// - Per pop, every block computes the queue gate and share from its
+//   replica, then (drf namespace order) the namespace fold: each block
+//   lists its nonzero member terms in job order, one cluster barrier, and
+//   every block folds the CB lists through distributed shared memory in
+//   block order, one warp a (namespace, dim) pair, so every block holds the
+//   sum the plain version folds. Skipping a term of exactly 0 changes no
+//   bit: the fold starts at +0.0 and x + (+-0) == x for every x but -0.0,
+//   which a sum started at +0.0 never is. There is no reassociation: the
+//   terms are added one at a time in index order.
+// - Eligibility and the keys of each of its jobs (the dynamic ones into a
+//   table), then its best job: the lexicographic argmin as one reduction
+//   of (key columns..., index) tuples with a NaN ordered before every
+//   number. The reference's column-by-column filter (each column's min,
+//   where a NaN wins, then keep the jobs <= it) picks the same job, or none
+//   when the filter meets a NaN, which is exactly when the tuple minimum
+//   holds a NaN; the tuple order is total, so the block and cluster
+//   reductions are order-free. One cluster exchange (double-buffered by
+//   the pop's parity) carries each block's best tuple, its "any eligible",
+//   the hdrf guard's queue min and max, and the cursor and allocation
+//   count of its proposal (its best, or the first candidate at pop 0), so
+//   every block makes the same pop decision.
+// - The section's attempts go through cluster_pick (and cluster_aff_eval
+//   with pod affinity) as in kernel 1; every block keeps the same section
+//   bookkeeping and slot arrays, the owner of the chosen node commits and
+//   saves its column, a discard restores each block's own columns and
+//   takes back its slice of the affinity rows.
+// - Finalize: every block demotes or resets its slot arrays, folds the
+//   pop's committed resources in slot order and adds them to its queue
+//   replica; the block that owns the popped job updates that job's rows.
+// - Each global output has one writer, at the end: each block its slices
+//   of the node state, affinity counts and job rows, block 0 the queue
+//   allocations, slot nodes and modes, pops and progress, the owner of a
+//   slot's node (block 0 where none) its GPU card.
+// - A card that cannot place the cluster makes the launch fail: there is
+//   no other design to fall back to.
+// With a non-null int64 row the launch also writes its phase split
+// (clock64() cycles of block 0 by phase, summed over its pops).
+
+#include <cooperative_groups.h>
 
 #include "placement.cuh"
 
@@ -46,9 +76,19 @@ using namespace placement;
 constexpr int MAX_KEYS = 32;
 constexpr int KEY_NS = -1, KEY_QSHARE = -2, KEY_READY = -3, KEY_JSHARE = -4;
 constexpr int KEY_HCOL = -8;
+// rows of the dynamic key table: codes -1 .. -4
+constexpr int N_DYN = 4;
+// most (namespace, dim) pairs of the namespace fold, and most jobs a thread
+// keeps in its eligibility bitmask
+constexpr int MAX_PAIRS = 32;
+constexpr int JOB_BITS = 32;
+// static shared memory the kernel may keep: ops/dyn_placer.py's
+// MAX_SHARED leaves this much of a block's 232,448 bytes for it
+constexpr size_t STATIC_SHARED = 4096;
 
 // pointer slots of dyn_placer_launch: the inputs in the order of
-// dyn_placer.DynArgs, then the outputs, then the scratch row pair
+// dyn_placer.DynArgs, then the outputs, then the scratch rows and the
+// phase split
 enum Ptr {
   P_RESREQ, P_GPU_REQ, P_PREF, P_SUFFIX, P_TMPL, P_GRP, P_VOLN, P_VOLOK,
   P_REV, P_TIDOK, P_NBE, P_CAND, P_CSLOT, P_SKEYS, P_HCOLS, P_QID, P_QOH,
@@ -70,12 +110,92 @@ enum Ptr {
 // integer dimensions and flags of dyn_placer_launch; the key plan follows
 enum Dim { D_C, D_KP, D_M, D_N, D_R, D_G, D_GR, D_J, D_Q, D_S, D_NH, D_NKS,
            D_GANG, D_PIPELINING, D_DRF_NS, D_NKEYS, D_AFF, D_SK, D_ETA, D_SEL,
-           D_A, D_B, D_PP, N_DIMS };
+           D_A, D_B, D_PP, D_CB, N_DIMS };
+
+// the phase split: clock64() cycles of each phase summed over the launch's
+// pops, then the launch's cycles, its globaltimer nanoseconds and its pops
+enum Phase { PH_PROLOGUE, PH_GATE_FOLD, PH_ELIG, PH_ARGMIN, PH_ATTEMPTS,
+             PH_FINALIZE, N_PHASES };
+
+// Word offsets of one block's dynamic shared memory (ops/dyn_placer.py
+// shared_bytes computes the same total): the node part as in kernel 1, the
+// launch's slot arrays, the queue replicas and per-pop scratch, then the
+// job rows [jcap] each.
+struct Plan {
+  int cap, jcap, col, P;
+  int st, save_node, save_val, slot_node, slot_mode, slot_card, tot, lists;
+  int qalloc, des, qex, over, qshare, total, ns_alloc, ns_share, wcnt, woff,
+      fcnt;
+  int skeys, hcols, qoh, nsm, nsc, validf, jalloc, dk, fl;
+  int qid, minav, rdy0, npend, eligs, done, popped, jready, jpipe, cursor,
+      acount;
+  int words;
+};
+
+__host__ __device__ inline int take(int& w, int n) {
+  const int at = w;
+  w += n;
+  return at;
+}
+
+__host__ __device__ inline Plan make_plan(int N, int J, int CB, int CM,
+                                          int M, int R, int G, int Q, int S,
+                                          int P, int NKS, int NH, int SK,
+                                          int list_ints) {
+  Plan p;
+  p.cap = (N + CB - 1) / CB;
+  p.jcap = (J + CB - 1) / CB;
+  p.col = 2 * R + 1 + G;
+  p.P = P;
+  const int jc = p.jcap;
+  int w = 0;
+  p.st = take(w, p.col * p.cap);
+  p.save_node = take(w, M);
+  p.save_val = take(w, M * p.col);
+  p.slot_node = take(w, CM);
+  p.slot_mode = take(w, CM);
+  p.slot_card = take(w, CM);
+  p.tot = take(w, SK);
+  p.lists = take(w, list_ints);
+  p.qalloc = take(w, Q * R);
+  p.des = take(w, Q * R);
+  p.qex = take(w, Q);
+  p.over = take(w, Q);
+  p.qshare = take(w, Q);
+  p.total = take(w, R);
+  p.ns_alloc = take(w, S * R);
+  p.ns_share = take(w, S);
+  p.wcnt = take(w, P * CWARPS);
+  p.woff = take(w, P * CWARPS);
+  p.fcnt = take(w, P);
+  p.skeys = take(w, NKS * jc);
+  p.hcols = take(w, NH * jc);
+  p.qoh = take(w, Q * jc);
+  p.nsm = take(w, S * jc);
+  p.nsc = take(w, S * jc);
+  p.validf = take(w, jc);
+  p.jalloc = take(w, R * jc);
+  p.dk = take(w, N_DYN * jc);
+  p.fl = take(w, P * jc);
+  p.qid = take(w, jc);
+  p.minav = take(w, jc);
+  p.rdy0 = take(w, jc);
+  p.npend = take(w, jc);
+  p.eligs = take(w, jc);
+  p.done = take(w, jc);
+  p.popped = take(w, jc);
+  p.jready = take(w, jc);
+  p.jpipe = take(w, jc);
+  p.cursor = take(w, jc);
+  p.acount = take(w, jc);
+  p.words = w;
+  return p;
+}
 
 struct Args {
-  NodeEnv env;
+  NodeEnv env;  // idle, pipe, pods, gpux: the output buffers
   SlotEnv slots;
-  AffEnv aff;
+  AffEnv aff;   // cnt, anti_cnt, tot: the output buffers
   const int* suffix;   // [1, CM]
   const int* tidok;    // [1, CM]
   const int* nbe;      // [1, CM]
@@ -128,86 +248,20 @@ struct Args {
   float* qalloc;  // [Q, R]
   int* pops_o;
   int* prog_o;
-  long long* stamps;  // [N_STAMPS] or null: the phase split
-  int C, KP, M, J, Q, S, NH, gang, drf_ns, nkeys, has_aff;
+  long long* stamps;  // [N_PHASES + 3] or null: the phase split
+  int C, KP, M, J, Q, S, NH, NKS, gang, drf_ns, nkeys, has_aff, SK,
+      list_ints;
   int keys[MAX_KEYS];
 };
 
-// jnp.min semantics: a NaN wins
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (isnan(a) || a < b) ? a : b;
-}
-
-template <typename T, typename Op>
-__device__ T block_reduce(T v, Op op, T* red, T* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    v = op(v, __shfl_down_sync(0xffffffffu, v, off));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = red[lane];
-    for (int off = 16; off > 0; off >>= 1)
-      v = op(v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lane == 0) *out = v;
-  }
-  __syncthreads();
-  return *out;
-}
-
-struct MinF {
-  __device__ float operator()(float a, float b) const { return min_nan(a, b); }
+// One block's partial of a pop's selection exchange.
+struct SelSlot {
+  int any;         // an eligible job in the block's slice
+  int best;        // its best eligible job (global index), J when none
+  int cur, acnt;   // cursor and allocation count of its proposal
+  float qmn, qmx;  // min and max queue id over its eligible jobs
+  float key[MAX_KEYS];  // the best job's key columns
 };
-struct MaxF {
-  __device__ float operator()(float a, float b) const {
-    return (isnan(a) || a > b) ? a : b;
-  }
-};
-struct MinI {
-  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
-};
-
-// one key column of job j (the key plan of dyn_placer.key_plan)
-__device__ float key_value(const Args& a, int code, int j, const float* qshare,
-                           const float* ns_share) {
-  const int J = a.J;
-  const float EPS_DIV = static_cast<float>(1e-9);
-  if (code >= 0) return a.skeys[code * J + j];
-  if (code <= KEY_HCOL) return a.hcols[(KEY_HCOL - code) * J + j];
-  if (code == KEY_QSHARE) {
-    float acc = 0.0f;
-    for (int q = 0; q < a.Q; ++q) acc = acc + a.qoh[q * J + j] * qshare[q];
-    return acc;
-  }
-  if (code == KEY_READY)
-    return (a.rdy0[j] + a.acount[j] >= a.minav[j] && a.minav[j] > 0) ? 1.0f
-                                                                     : 0.0f;
-  if (code == KEY_NS) {
-    float key = 0.0f;
-    for (int s = 0; s < a.S; ++s)
-      if (a.nsm[s * J + j] > 0.0f) key = ns_share[s];
-    return key;
-  }
-  if (code == KEY_JSHARE) {
-    // the drf dominant share over the live allocation
-    if (!(a.validf[j] > 0.0f)) return __int_as_float(0x7f800000);  // +inf
-    float share = 0.0f;
-    for (int r = 0; r < a.env.R; ++r) {
-      const float t = a.total[r];
-      const float frac =
-          t > 0.0f ? a.jalloc[r * J + j] / fmaxf(t, EPS_DIV) : 0.0f;
-      share = r == 0 ? frac : fmaxf(share, frac);
-    }
-    return share;
-  }
-  return 0.0f;  // no such code: the wrapper's key plan never sends one
-}
-
-// the phase split (optional): clock64() cycles of each phase summed over
-// the launch's pops, the launch's cycles and globaltimer nanoseconds, pops
-enum Phase { PH_PROLOGUE, PH_GATE_FOLD, PH_ELIG, PH_ARGMIN, PH_ATTEMPTS,
-             PH_FINALIZE, N_PHASES };
-constexpr int N_STAMPS = N_PHASES + 3;
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -215,37 +269,128 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-__global__ void __launch_bounds__(BLOCK)
+// -1 when key a orders before key b, 1 after, 0 tied: numbers by value
+// (-0.0 ties +0.0), a NaN before every number (it wins the reference's
+// column minimum), two NaNs tied
+__device__ __forceinline__ int key_cmp(float a, float b) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na || nb) return na && nb ? 0 : (na ? -1 : 1);
+  return a < b ? -1 : (b < a ? 1 : 0);
+}
+
+// The better of two jobs of this block (local indices, -1 none) by their
+// key columns, then the lower index.
+__device__ __forceinline__ int better_job(const float* const* krow,
+                                          int nkeys, int x, int y) {
+  if (x < 0) return y;
+  if (y < 0) return x;
+  for (int c = 0; c < nkeys; ++c) {
+    const int d = key_cmp(krow[c][x], krow[c][y]);
+    if (d != 0) return d < 0 ? x : y;
+  }
+  return x < y ? x : y;
+}
+
+// The better of two blocks' best jobs (block ranks, -1 none) by the key
+// tuples in `tup` [MAX_CB, MAX_KEYS]; tied tuples go to the lower rank,
+// whose jobs come first.
+__device__ __forceinline__ int better_block(const float* tup, int nkeys,
+                                            int x, int y) {
+  if (x < 0) return y;
+  if (y < 0) return x;
+  for (int c = 0; c < nkeys; ++c) {
+    const int d = key_cmp(tup[x * MAX_KEYS + c], tup[y * MAX_KEYS + c]);
+    if (d != 0) return d < 0 ? x : y;
+  }
+  return x < y ? x : y;
+}
+
+// One block a multiprocessor: the registers of 512 threads may reach 128
+// each.
+__global__ void __launch_bounds__(CBLOCK, 1)
     dyn_placer_kernel(const __grid_constant__ Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
   const float EPS_CMP = static_cast<float>(1e-6);
   const float EPS_DIV = static_cast<float>(1e-9);
   const float INF = __int_as_float(0x7f800000);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const NodeEnv& e = a.env;
-  const AffEnv& ae = a.aff;
   const bool aff = a.has_aff != 0;
-  const int R = e.R, G = e.G, M = a.M, J = a.J, Q = a.Q, S = a.S, N = e.N;
-  const int CM = a.C * M;
+  const int R = e.R, M = a.M, J = a.J, Q = a.Q, S = a.S, N = e.N;
+  const int CM = a.C * M, nkeys = a.nkeys;
+  const int CB = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int P = a.drf_ns ? S * R : 0;
+  const Plan pl = make_plan(N, J, CB, CM, M, R, e.G, Q, S, P, a.NKS, a.NH,
+                            a.SK, a.list_ints);
+  const int cap = pl.cap, jcap = pl.jcap;
+  const int lo = min(rank * cap, N), hi = min(lo + cap, N);
+  const int jlo = min(rank * jcap, J), jn = min(jlo + jcap, J) - jlo;
 
   extern __shared__ float smem[];
-  const SaveArea save{reinterpret_cast<int*>(smem), smem + M, 2 * R + 1 + G};
-  float* over_col = smem + M + M * save.stride;  // [Q]
-  float* qshare = over_col + Q;                  // [Q]
-  float* ns_alloc = qshare + Q;                  // [S, R]
-  float* ns_share = ns_alloc + S * R;            // [S]
+  auto F = [&](int off) { return smem + off; };
+  auto I = [&](int off) { return reinterpret_cast<int*>(smem + off); };
+  float* st = F(pl.st);
+  const LiveView lv{st, st + R * cap, st + 2 * R * cap,
+                    st + (2 * R + 1) * cap, cap, lo};
+  const SaveArea save{I(pl.save_node), F(pl.save_val), pl.col};
+  int* slot_node = I(pl.slot_node);
+  int* slot_mode = I(pl.slot_mode);
+  int* slot_card = I(pl.slot_card);
+  float* qalloc = F(pl.qalloc);
+  float* des = F(pl.des);
+  float* qex = F(pl.qex);
+  float* over_col = F(pl.over);
+  float* qshare = F(pl.qshare);
+  float* total = F(pl.total);
+  float* ns_alloc = F(pl.ns_alloc);
+  float* ns_share = F(pl.ns_share);
+  int* wcnt = I(pl.wcnt);
+  int* woff = I(pl.woff);
+  int* fcnt = I(pl.fcnt);
+  float* skeys = F(pl.skeys);
+  float* hcols = F(pl.hcols);
+  float* qoh = F(pl.qoh);
+  float* nsm = F(pl.nsm);
+  float* nsc = F(pl.nsc);
+  float* validf = F(pl.validf);
+  float* jalloc = F(pl.jalloc);
+  float* dk = F(pl.dk);
+  float* fl = F(pl.fl);
+  int* qid = I(pl.qid);
+  int* minav = I(pl.minav);
+  int* rdy0 = I(pl.rdy0);
+  int* npend = I(pl.npend);
+  int* eligs = I(pl.eligs);
+  int* done = I(pl.done);
+  int* popped = I(pl.popped);
+  int* jready = I(pl.jready);
+  int* jpipe = I(pl.jpipe);
+  int* cursor = I(pl.cursor);
+  int* acount = I(pl.acount);
+  __shared__ ClusterSlot slots[2];
+  __shared__ SelSlot sel[2];
+  __shared__ float tup[MAX_CB * MAX_KEYS];
+  __shared__ const float* krow[MAX_KEYS];
   __shared__ PickShared ps;
   __shared__ AffShared as;
   __shared__ float aff_red[2 * WARPS];
-  __shared__ float red_f[WARPS];
-  __shared__ int red_i[WARPS];
-  __shared__ float out_f;
-  __shared__ int out_i;
+  __shared__ int w_best[CWARPS], w_any[CWARPS];
+  __shared__ float w_qmn[CWARPS], w_qmx[CWARPS];
   __shared__ int p_stop, p_jstar, p_off, p_cur0, p_ready0, p_minav, p_canb,
       p_tgt;
   __shared__ int s_stopped, s_broke, s_nalloc, s_npipe, s_nadv, s_nsave,
       s_keep, s_ready, s_pipelined;
   __shared__ int kept_any, prog, pops;
-  const bool stamp_on = a.stamps != nullptr && tid == 0;
+  static_assert(sizeof(slots) + sizeof(sel) + sizeof(tup) + sizeof(krow) +
+                        sizeof(ps) + sizeof(as) + sizeof(aff_red) +
+                        sizeof(w_best) + sizeof(w_any) + sizeof(w_qmn) +
+                        sizeof(w_qmx) + 20 * sizeof(int) <=
+                    STATIC_SHARED,
+                "static shared memory over the allowance MAX_SHARED leaves");
+  int xc = 0;  // pick and affinity exchanges so far: their slot parity
+
+  const bool stamp_on = a.stamps != nullptr && rank == 0 && tid == 0;
   long long ph[N_PHASES] = {};
   const long long clk0 = stamp_on ? clock64() : 0;
   const unsigned long long ns0 = stamp_on ? global_ns() : 0;
@@ -258,26 +403,60 @@ __global__ void __launch_bounds__(BLOCK)
     }
   };
 
-  if (aff && tid == 0)
-    aff_bind(as, reinterpret_cast<int*>(ns_share + S), ae);
-
-  // ---- copy the input state to the outputs, updated in place from here
-  copy_state(e, a.idle_in, a.pipe_in, a.pods_in, a.gpux_in);
-  if (aff) copy_aff(ae, N, a.cnt_in, a.tot_in, a.anti_in);
-  for (int j = tid; j < J; j += BLOCK) {
-    a.done[j] = a.done_in[j];
-    a.popped[j] = a.popped_in[j];
-    a.jready[j] = a.jready_in[j];
-    a.jpipe[j] = a.jpipe_in[j];
-    a.cursor[j] = a.cursor_in[j];
-    a.acount[j] = a.acount_in[j];
+  // ---- this block's slices of the input state, the queue replicas ------
+  AffEnv ae = a.aff;
+  ae.tot = F(pl.tot);
+  if (aff && tid == 0) aff_bind(as, I(pl.lists), ae);
+  load_slice(e, {a.idle_in, a.pipe_in, a.pods_in, a.gpux_in}, st, cap, lo,
+             hi);
+  if (aff) {
+    for (int k = 0; k < ae.SK; ++k)
+      for (int i = lo + tid; i < hi; i += CBLOCK)
+        ae.cnt[k * N + i] = a.cnt_in[k * N + i];
+    for (int k = 0; k < ae.ETA; ++k)
+      for (int i = lo + tid; i < hi; i += CBLOCK)
+        ae.anti_cnt[k * N + i] = a.anti_in[k * N + i];
+    for (int k = tid; k < ae.SK; k += CBLOCK) ae.tot[k] = a.tot_in[k];
   }
-  for (int j = tid; j < R * J; j += BLOCK) a.jalloc[j] = a.jalloc_in[j];
-  for (int j = tid; j < Q * R; j += BLOCK) a.qalloc[j] = a.qalloc_in[j];
-  for (int j = tid; j < CM; j += BLOCK) {
-    a.node_o[j] = -1;
-    a.mode_o[j] = MODE_NONE;
-    a.gpu_o[j] = -1;
+  for (int x = tid; x < jn; x += CBLOCK) {
+    const int j = jlo + x;
+    for (int k = 0; k < a.NKS; ++k) skeys[k * jcap + x] = a.skeys[k * J + j];
+    for (int k = 0; k < a.NH; ++k) hcols[k * jcap + x] = a.hcols[k * J + j];
+    for (int q = 0; q < Q; ++q) qoh[q * jcap + x] = a.qoh[q * J + j];
+    for (int s = 0; s < S; ++s) {
+      nsm[s * jcap + x] = a.nsm[s * J + j];
+      nsc[s * jcap + x] = a.nsc[s * J + j];
+    }
+    validf[x] = a.validf[j];
+    for (int r = 0; r < R; ++r) jalloc[r * jcap + x] = a.jalloc_in[r * J + j];
+    qid[x] = a.qid[j];
+    minav[x] = a.minav[j];
+    rdy0[x] = a.rdy0[j];
+    npend[x] = a.npend[j];
+    eligs[x] = a.eligs[j];
+    done[x] = a.done_in[j];
+    popped[x] = a.popped_in[j];
+    jready[x] = a.jready_in[j];
+    jpipe[x] = a.jpipe_in[j];
+    cursor[x] = a.cursor_in[j];
+    acount[x] = a.acount_in[j];
+  }
+  for (int k = tid; k < Q * R; k += CBLOCK) {
+    qalloc[k] = a.qalloc_in[k];
+    des[k] = a.des[k];
+  }
+  for (int q = tid; q < Q; q += CBLOCK) qex[q] = a.qex[q];
+  for (int r = tid; r < R; r += CBLOCK) total[r] = a.total[r];
+  for (int s = tid; s < CM; s += CBLOCK) {
+    slot_node[s] = -1;
+    slot_mode[s] = MODE_NONE;
+    slot_card[s] = -1;
+  }
+  if (tid < nkeys) {
+    const int code = a.keys[tid];
+    krow[tid] = code >= 0 ? skeys + code * jcap
+                : code <= KEY_HCOL ? hcols + (KEY_HCOL - code) * jcap
+                                   : dk + (-code - 1) * jcap;
   }
   if (tid == 0) {
     kept_any = 0;
@@ -288,137 +467,274 @@ __global__ void __launch_bounds__(BLOCK)
   stamp(PH_PROLOGUE);
 
   const int kmax = a.kmax[0];
+  const int rounds = (jn + CBLOCK - 1) / CBLOCK;
   for (int p = 0; p < a.KP; ++p) {
-    // ---- per-queue gate and share, namespace allocations ---------------
+    // ---- per-queue gate and share, from this block's replica -----------
     if (tid < Q) {
       float over = 0.0f, share = 0.0f;
       for (int r = 0; r < R; ++r) {
-        const float qa = a.qalloc[tid * R + r], d = a.des[tid * R + r];
+        const float qa = qalloc[tid * R + r], d = des[tid * R + r];
         if (qa > d + EPS_CMP) over = 1.0f;
         const float v = (isfinite(d) && d > 0.0f) ? qa / fmaxf(d, EPS_DIV)
                                                   : 0.0f;
         share = r == 0 ? v : fmaxf(share, v);
       }
       over_col[tid] = over;
-      qshare[tid] = share + a.qex[tid];
+      qshare[tid] = share + qex[tid];
     }
-    if (a.drf_ns && p > 0 && tid < S * R) {
-      // the member jobs' allocations, folded over j in index order
-      const int s = tid / R, r = tid % R;
-      const float* contrib = a.nsc + s * J;
-      const float* row = a.jalloc + r * J;
-      float acc = 0.0f;
-      for (int j = 0; j < J; ++j)
-        acc = acc + (contrib[j] > 0.0f ? row[j] : 0.0f);
-      ns_alloc[s * R + r] = acc;
+    // ---- the namespace fold: nonzero member terms in job order ----------
+    if (P > 0 && p > 0) {
+      if (tid < P) fcnt[tid] = 0;
+      __syncthreads();
+      for (int k = 0; k < rounds; ++k) {
+        const int x = tid + k * CBLOCK;
+        unsigned nz = 0u;
+        for (int t = 0; t < P; ++t) {
+          const int s = t / R, r = t % R;
+          const float term = x < jn && nsc[s * jcap + x] > 0.0f
+                                 ? jalloc[r * jcap + x]
+                                 : 0.0f;
+          if (term != 0.0f) nz |= 1u << t;
+        }
+        for (int t = 0; t < P; ++t) {
+          const unsigned b = __ballot_sync(0xffffffffu, (nz >> t) & 1u);
+          if (lane == 0) wcnt[t * CWARPS + warp] = __popc(b);
+        }
+        __syncthreads();
+        if (tid < P) {
+          int run = fcnt[tid];
+          for (int w = 0; w < CWARPS; ++w) {
+            woff[tid * CWARPS + w] = run;
+            run += wcnt[tid * CWARPS + w];
+          }
+          fcnt[tid] = run;
+        }
+        __syncthreads();
+        for (int t = 0; t < P; ++t) {
+          const bool bit = (nz >> t) & 1u;
+          const unsigned b = __ballot_sync(0xffffffffu, bit);
+          if (bit) {
+            const int pos = woff[t * CWARPS + warp] +
+                            __popc(b & ((1u << lane) - 1u));
+            fl[t * jcap + pos] = jalloc[(t % R) * jcap + x];
+          }
+        }
+        __syncthreads();
+      }
+      cluster.sync();
+      // every block folds the CB lists in block order, a warp a pair
+      for (int t = warp; t < P; t += CWARPS) {
+        const int n = lane < CB ? cluster.map_shared_rank(fcnt, lane)[t] : 0;
+        int incl = n;
+        for (int off = 1; off < 32; off <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += v;
+        }
+        const int excl = incl - n;
+        const int count = __shfl_sync(0xffffffffu, incl, 31);
+        float acc = 0.0f;
+        for (int base = 0; base < count; base += 4 * 32) {
+          float v[4];
+          for (int u = 0; u < 4; ++u) {
+            const int pos = base + u * 32 + lane;
+            int b = 0, b_excl = 0;
+            for (int bb = 0; bb < CB; ++bb) {
+              const int eb = __shfl_sync(0xffffffffu, excl, bb);
+              if (eb <= pos) {
+                b = bb;
+                b_excl = eb;
+              }
+            }
+            v[u] = pos < count
+                       ? cluster.map_shared_rank(fl, b)[t * jcap + pos - b_excl]
+                       : 0.0f;
+          }
+          for (int u = 0; u < 4; ++u) {
+            const int left = min(32, count - (base + u * 32));
+            for (int k = 0; k < left; ++k)
+              acc = acc + __shfl_sync(0xffffffffu, v[u], k);
+          }
+        }
+        if (lane == 0) ns_alloc[t] = acc;
+      }
+      __syncthreads();
+      if (tid < S) {
+        float share = 0.0f;
+        for (int r = 0; r < R; ++r) {
+          const float t = total[r];
+          const float frac =
+              t > 0.0f ? ns_alloc[tid * R + r] / fmaxf(t, EPS_DIV) : 0.0f;
+          share = r == 0 ? frac : fmaxf(share, frac);
+        }
+        ns_share[tid] = share / fmaxf(a.nsw[tid], 1.0f);
+      }
     }
     __syncthreads();
-    if (a.drf_ns && p > 0 && tid < S) {
-      float share = 0.0f;
-      for (int r = 0; r < R; ++r) {
-        const float t = a.total[r];
-        const float frac =
-            t > 0.0f ? ns_alloc[tid * R + r] / fmaxf(t, EPS_DIV) : 0.0f;
-        share = r == 0 ? frac : fmaxf(share, frac);
-      }
-      ns_share[tid] = share / fmaxf(a.nsw[tid], 1.0f);
-    }
     stamp(PH_GATE_FOLD);
 
-    // ---- eligibility into a per-thread bitmask --------------------------
+    // ---- eligibility, and the dynamic keys of the eligible jobs --------
     unsigned bits = 0u;
     float qmn = INF, qmx = -INF;
-    for (int u = 0, j = tid; j < J; j += BLOCK, ++u) {
+    for (int u = 0, x = tid; x < jn; x += CBLOCK, ++u) {
       float over = 0.0f;
-      for (int q = 0; q < Q; ++q) over = over + a.qoh[q * J + j] * over_col[q];
-      if (a.eligs[j] > 0 && a.done[j] == 0 && a.cursor[j] < a.npend[j] &&
-          !(over > 0.0f)) {
-        bits |= 1u << u;
-        const float qf = static_cast<float>(a.qid[j]);
-        qmn = fminf(qmn, qf);
-        qmx = fmaxf(qmx, qf);
+      for (int q = 0; q < Q; ++q) over = over + qoh[q * jcap + x] * over_col[q];
+      if (!(eligs[x] > 0 && done[x] == 0 && cursor[x] < npend[x] &&
+            !(over > 0.0f)))
+        continue;
+      bits |= 1u << u;
+      const float qf = static_cast<float>(qid[x]);
+      qmn = fminf(qmn, qf);
+      qmx = fmaxf(qmx, qf);
+      if (p == 0) continue;
+      float acc = 0.0f;
+      for (int q = 0; q < Q; ++q) acc = acc + qoh[q * jcap + x] * qshare[q];
+      dk[(-KEY_QSHARE - 1) * jcap + x] = acc;
+      dk[(-KEY_READY - 1) * jcap + x] =
+          (rdy0[x] + acount[x] >= minav[x] && minav[x] > 0) ? 1.0f : 0.0f;
+      float nk = 0.0f;
+      for (int s = 0; s < S; ++s)
+        if (nsm[s * jcap + x] > 0.0f) nk = ns_share[s];
+      dk[(-KEY_NS - 1) * jcap + x] = nk;
+      float js = INF;
+      if (validf[x] > 0.0f) {
+        // the drf dominant share over the live allocation
+        for (int r = 0; r < R; ++r) {
+          const float t = total[r];
+          const float frac =
+              t > 0.0f ? jalloc[r * jcap + x] / fmaxf(t, EPS_DIV) : 0.0f;
+          js = r == 0 ? frac : fmaxf(js, frac);
+        }
       }
-    }
-    const bool any_elig = __syncthreads_or(bits != 0u);
-    bool guard = false;
-    if (a.NH > 0 && kept_any) {
-      // hdrf: the frozen columns are exact only while every contender
-      // shares one queue once a commit has moved the tree
-      const float mn = block_reduce(qmn, MinF(), red_f, &out_f);
-      const float mx = block_reduce(qmx, MaxF(), red_f, &out_f);
-      guard = mn != mx;
+      dk[(-KEY_JSHARE - 1) * jcap + x] = js;
     }
     stamp(PH_ELIG);
 
-    // ---- lexicographic argmin over the eligible jobs (pops after 0) ----
-    int jsel = J;
-    if (p > 0 && any_elig) {
-      float kmin_prev = 0.0f;
-      for (int c = 0; c <= a.nkeys; ++c) {
-        float lmin = INF;
-        for (int u = 0, j = tid; j < J; j += BLOCK, ++u) {
-          if (!((bits >> u) & 1u)) continue;
-          if (c > 0 &&
-              !(key_value(a, a.keys[c - 1], j, qshare, ns_share) <=
-                kmin_prev)) {
-            bits &= ~(1u << u);
-            continue;
-          }
-          if (c < a.nkeys)
-            lmin = min_nan(lmin, key_value(a, a.keys[c], j, qshare, ns_share));
-        }
-        if (c < a.nkeys) kmin_prev = block_reduce(lmin, MinF(), red_f, &out_f);
-      }
-      int lo = J;
-      for (int u = 0, j = tid; j < J; j += BLOCK, ++u)
-        if ((bits >> u) & 1u) {
-          lo = j;
-          break;
-        }
-      jsel = block_reduce(lo, MinI(), red_i, &out_i);
+    // ---- this block's best job, then the selection exchange ------------
+    int bx = -1;
+    if (p > 0)
+      for (int u = 0, x = tid; x < jn; x += CBLOCK, ++u)
+        if ((bits >> u) & 1u) bx = better_job(krow, nkeys, bx, x);
+    __syncwarp();
+    for (int off = 16; off > 0; off >>= 1)
+      bx = better_job(krow, nkeys, bx,
+                      __shfl_down_sync(0xffffffffu, bx, off));
+    const bool w_elig = __any_sync(0xffffffffu, bits != 0u);
+    for (int off = 16; off > 0; off >>= 1) {
+      qmn = fminf(qmn, __shfl_down_sync(0xffffffffu, qmn, off));
+      qmx = fmaxf(qmx, __shfl_down_sync(0xffffffffu, qmx, off));
     }
-    stamp(PH_ARGMIN);
-
-    // ---- the pop and its stop rules (thread 0) ---------------------------
-    if (tid == 0) {
-      const int jstar = p == 0 ? a.cand[0] : jsel;
-      const bool inside = jstar >= 0 && jstar < J;
-      const int cs = inside ? a.cslot[jstar] : 0;
-      const bool ok = p < kmax && any_elig && !guard && cs >= 0 && inside;
-      p_stop = ok ? 0 : 1;
-      if (ok) {
-        p_jstar = jstar;
-        p_off = cs * M;
-        p_cur0 = a.cursor[jstar];
-        p_ready0 = a.rdy0[jstar] + a.acount[jstar];
-        p_minav = a.minav[jstar];
-        p_canb = a.canb[jstar] > 0;
-        p_tgt = jstar == a.tgt[0];
-      }
-      s_stopped = 0;
-      s_broke = 0;
-      s_nalloc = 0;
-      s_npipe = 0;
-      s_nadv = 0;
-      s_nsave = 0;
+    if (lane == 0) {
+      w_best[warp] = bx;
+      w_any[warp] = w_elig;
+      w_qmn[warp] = qmn;
+      w_qmx[warp] = qmx;
     }
     __syncthreads();
-    stamp(PH_FINALIZE);
+    SelSlot* mine = &sel[p & 1];
+    if (warp == 0) {
+      bx = lane < CWARPS ? w_best[lane] : -1;
+      for (int off = 16; off > 0; off >>= 1)
+        bx = better_job(krow, nkeys, bx,
+                        __shfl_down_sync(0xffffffffu, bx, off));
+      bx = __shfl_sync(0xffffffffu, bx, 0);
+      const bool any = __any_sync(0xffffffffu, lane < CWARPS && w_any[lane]);
+      float mn = lane < CWARPS ? w_qmn[lane] : INF;
+      float mx = lane < CWARPS ? w_qmx[lane] : -INF;
+      for (int off = 16; off > 0; off >>= 1) {
+        mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, off));
+        mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, off));
+      }
+      if (bx >= 0)
+        for (int c = lane; c < nkeys; c += 32) mine->key[c] = krow[c][bx];
+      if (lane == 0) {
+        // the proposal: the best job, or the launch's first candidate
+        const int c0 = a.cand[0];
+        const int px = p > 0 ? bx : (c0 >= jlo && c0 < jlo + jn ? c0 - jlo
+                                                                 : -1);
+        mine->any = any;
+        mine->best = bx >= 0 ? jlo + bx : J;
+        mine->qmn = mn;
+        mine->qmx = mx;
+        mine->cur = px >= 0 ? cursor[px] : 0;
+        mine->acnt = px >= 0 ? acount[px] : 0;
+      }
+    }
+    cluster.sync();
+    if (warp == 0) {
+      const SelSlot* rs =
+          cluster.map_shared_rank(mine, lane < CB ? lane : 0);
+      const int best = lane < CB ? rs->best : J;
+      if (p > 0 && best < J)
+        for (int c = 0; c < nkeys; ++c)
+          tup[lane * MAX_KEYS + c] = rs->key[c];
+      __syncwarp();
+      int wb = best < J ? lane : -1;
+      for (int off = 16; off > 0; off >>= 1)
+        wb = better_block(tup, nkeys, wb,
+                          __shfl_down_sync(0xffffffffu, wb, off));
+      wb = __shfl_sync(0xffffffffu, wb, 0);
+      const bool any = __any_sync(0xffffffffu, lane < CB && rs->any);
+      float mn = lane < CB ? rs->qmn : INF, mx = lane < CB ? rs->qmx : -INF;
+      for (int off = 16; off > 0; off >>= 1) {
+        mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, off));
+        mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, off));
+      }
+      int jsel = J;
+      if (p > 0 && any && wb >= 0) {
+        jsel = __shfl_sync(0xffffffffu, best, wb);
+        // the column filter met a NaN: no job survives it
+        for (int c = 0; c < nkeys; ++c)
+          if (isnan(tup[wb * MAX_KEYS + c])) jsel = J;
+      }
+      const int jstar = p == 0 ? a.cand[0] : jsel;
+      const bool inside = jstar >= 0 && jstar < J;
+      const int owner = inside ? jstar / jcap : 0;
+      const int cur = __shfl_sync(0xffffffffu, lane < CB ? rs->cur : 0,
+                                  owner);
+      const int acnt = __shfl_sync(0xffffffffu, lane < CB ? rs->acnt : 0,
+                                   owner);
+      if (lane == 0) {
+        const bool guard = a.NH > 0 && kept_any && mn != mx;
+        const int cs = inside ? a.cslot[jstar] : 0;
+        const bool ok = p < kmax && any && !guard && cs >= 0 && inside;
+        p_stop = ok ? 0 : 1;
+        if (ok) {
+          p_jstar = jstar;
+          p_off = cs * M;
+          p_cur0 = cur;
+          p_ready0 = a.rdy0[jstar] + acnt;
+          p_minav = a.minav[jstar];
+          p_canb = a.canb[jstar] > 0;
+          p_tgt = jstar == a.tgt[0];
+        }
+        s_stopped = 0;
+        s_broke = 0;
+        s_nalloc = 0;
+        s_npipe = 0;
+        s_nadv = 0;
+        s_nsave = 0;
+      }
+    }
+    __syncthreads();
+    stamp(PH_ARGMIN);
     if (p_stop) break;
 
     // ---- the section: slots from the job's cursor on ---------------------
     const int off = p_off;
     for (int m = p_cur0; m < M; ++m) {
       const int s = off + m;
-      // uniform over the block: every thread reads the same shared flags
+      // uniform over the cluster: every block keeps the same flags
       const bool can_run = a.tidok[s] > 0 && !s_stopped && !s_broke;
       const bool active = can_run && a.nbe[s] > 0;
       Pick pk{-1, -1, false, false};
       Task t;
       if (active) {
         t = load_task(a.slots, e, s);
-        if (aff) aff_eval(ae, N, s, as, aff_red);
-        pk = block_pick(e, t, p_tgt != 0, ps, aff ? &ae : nullptr, &as);
+        if (aff)
+          cluster_aff_eval(cluster, ae, N, s, as, aff_red, lo, hi,
+                           &slots[xc++ & 1]);
+        pk = cluster_pick(cluster, e, lv, t, p_tgt != 0, ps, lo, hi,
+                          &slots[xc++ & 1], aff ? &ae : nullptr, &as);
       }
       if (tid == 0) {
         const bool do_alloc = active && pk.any_now;
@@ -429,12 +745,12 @@ __global__ void __launch_bounds__(BLOCK)
         if (placed) {
           node = do_alloc ? pk.node_now : pk.node_fut;
           mode = do_alloc ? MODE_ALLOCATED : MODE_PIPELINED;
-          card = commit(e, global_view(e), t, node, do_alloc, save,
-                        s_nsave++);
+          if (node >= lo && node < hi)
+            card = commit(e, lv, t, node, do_alloc, save, s_nsave++);
         }
-        a.node_o[s] = node;
-        a.mode_o[s] = mode;
-        a.gpu_o[s] = card;
+        slot_node[s] = node;
+        slot_mode[s] = mode;
+        slot_card[s] = card;
         s_nalloc += do_alloc ? 1 : 0;
         s_npipe += do_pipe ? 1 : 0;
         s_nadv += can_run ? 1 : 0;
@@ -445,59 +761,65 @@ __global__ void __launch_bounds__(BLOCK)
       }
       if (aff && active) {
         __syncthreads();
-        if (as.node >= 0) aff_apply(ae, N, s, as.node, 1.0f, as, true);
+        if (as.node >= 0)
+          aff_apply(ae, N, s, as.node, 1.0f, as, true, lo, hi, CBLOCK);
       }
       __syncthreads();
     }
-
     stamp(PH_ATTEMPTS);
 
-    // ---- gang finalize and the key-state commit (thread 0) --------------
-    const int lo = off + p_cur0, hi = off + M;
+    // ---- gang finalize and the key-state commit -------------------------
+    const int slo = off + p_cur0, shi = off + M;
     if (tid == 0) {
       s_ready = !a.gang || (p_ready0 + s_nalloc) >= p_minav;
       s_pipelined = (p_ready0 + s_nalloc + s_npipe) >= p_minav && !s_ready;
       s_keep = s_ready || s_pipelined;
     }
     __syncthreads();
-    if (aff && !s_keep)
-      for (int s = hi - 1; s >= lo; --s)
-        if (a.mode_o[s] != MODE_NONE)
-          aff_apply(ae, N, s, a.node_o[s], -1.0f, as, false);
+    if (!s_keep) {
+      if (aff)
+        for (int s = shi - 1; s >= slo; --s)
+          if (slot_mode[s] != MODE_NONE)
+            aff_apply(ae, N, s, slot_node[s], -1.0f, as, false, lo, hi,
+                      CBLOCK);
+      if (tid == 0) restore(e, lv, save, s_nsave);
+    }
     if (tid == 0) {
       const int jstar = p_jstar;
       const bool ready = s_ready, pipelined = s_pipelined, keep = s_keep;
       if (!keep) {
-        restore(e, global_view(e), save, s_nsave);
-        for (int s = lo; s < hi; ++s) {
-          a.node_o[s] = -1;
-          a.mode_o[s] = MODE_NONE;
-          a.gpu_o[s] = -1;
+        for (int s = slo; s < shi; ++s) {
+          slot_node[s] = -1;
+          slot_mode[s] = MODE_NONE;
+          slot_card[s] = -1;
         }
       } else if (!ready) {
         // kept-but-unready gang: capacity held, no binds
-        for (int s = lo; s < hi; ++s)
-          if (a.mode_o[s] == MODE_ALLOCATED) a.mode_o[s] = MODE_PIPELINED;
+        for (int s = slo; s < shi; ++s)
+          if (slot_mode[s] == MODE_ALLOCATED) slot_mode[s] = MODE_PIPELINED;
       }
       // committed resources of this pop, added in slot order
       float commit_col[MAX_R];
       for (int r = 0; r < R; ++r) commit_col[r] = 0.0f;
-      for (int s = lo; s < hi; ++s)
-        if (a.mode_o[s] != MODE_NONE)
+      for (int s = slo; s < shi; ++s)
+        if (slot_mode[s] != MODE_NONE)
           for (int r = 0; r < R; ++r)
             commit_col[r] = commit_col[r] + a.slots.resreq[r * CM + s];
-      a.done[jstar] = s_stopped ? 0 : 1;
-      a.popped[jstar] = 1;
-      a.jready[jstar] = (ready && keep) ? 1 : 0;
-      a.jpipe[jstar] = (pipelined && keep) ? 1 : 0;
-      a.cursor[jstar] = a.cursor[jstar] + s_nadv;
-      if (keep) a.acount[jstar] = a.acount[jstar] + s_nalloc;
-      for (int r = 0; r < R; ++r)
-        a.jalloc[r * J + jstar] = a.jalloc[r * J + jstar] + commit_col[r];
+      if (jstar / jcap == rank) {
+        const int x = jstar - jlo;
+        done[x] = s_stopped ? 0 : 1;
+        popped[x] = 1;
+        jready[x] = (ready && keep) ? 1 : 0;
+        jpipe[x] = (pipelined && keep) ? 1 : 0;
+        cursor[x] = cursor[x] + s_nadv;
+        if (keep) acount[x] = acount[x] + s_nalloc;
+        for (int r = 0; r < R; ++r)
+          jalloc[r * jcap + x] = jalloc[r * jcap + x] + commit_col[r];
+      }
       const int q = a.qid[jstar];
       if (q >= 0 && q < Q)
         for (int r = 0; r < R; ++r)
-          a.qalloc[q * R + r] = a.qalloc[q * R + r] + commit_col[r];
+          qalloc[q * R + r] = qalloc[q * R + r] + commit_col[r];
       if (keep && s_nalloc + s_npipe > 0) kept_any = 1;
       if (s_nalloc > 0 || pipelined || ready) prog = 1;
       pops += 1;
@@ -505,9 +827,36 @@ __global__ void __launch_bounds__(BLOCK)
     __syncthreads();
     stamp(PH_FINALIZE);
   }
-  if (tid == 0) {
-    a.pops_o[0] = pops;
-    a.prog_o[0] = prog;
+
+  // ---- this block's slices of the outputs -------------------------------
+  store_slice(e, st, cap, lo, hi);
+  for (int x = tid; x < jn; x += CBLOCK) {
+    const int j = jlo + x;
+    a.done[j] = done[x];
+    a.popped[j] = popped[x];
+    a.jready[j] = jready[x];
+    a.jpipe[j] = jpipe[x];
+    a.cursor[j] = cursor[x];
+    a.acount[j] = acount[x];
+    for (int r = 0; r < R; ++r) a.jalloc[r * J + j] = jalloc[r * jcap + x];
+  }
+  for (int s = tid; s < CM; s += CBLOCK) {
+    const int node = slot_node[s];
+    if (rank == 0) {
+      a.node_o[s] = node;
+      a.mode_o[s] = slot_mode[s];
+    }
+    if (rank == (node >= 0 ? node / cap : 0))
+      a.gpu_o[s] = node >= 0 ? slot_card[s] : -1;
+  }
+  if (rank == 0) {
+    for (int k = tid; k < Q * R; k += CBLOCK) a.qalloc[k] = qalloc[k];
+    if (aff)
+      for (int k = tid; k < ae.SK; k += CBLOCK) a.aff.tot[k] = ae.tot[k];
+    if (tid == 0) {
+      a.pops_o[0] = pops;
+      a.prog_o[0] = prog;
+    }
   }
   if (stamp_on) {
     stamp(PH_FINALIZE);
@@ -516,22 +865,27 @@ __global__ void __launch_bounds__(BLOCK)
     a.stamps[N_PHASES + 1] = static_cast<long long>(global_ns() - ns0);
     a.stamps[N_PHASES + 2] = pops;
   }
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
 }
 
 }  // namespace
 
 // ptrs: the inputs in the order of dyn_placer.DynArgs, then the 20
-// outputs, then the [2, N] scratch and the int64 [N_STAMPS] phase split
-// (null where a part is off); dims: see
-// Dim, then the key plan; weights: binpack, least, most, balanced, pod
-// affinity.
+// outputs, then the [2, N] scratch and the int64 [N_PHASES + 3] phase
+// split (null where a part is off); dims: see Dim, then the key plan;
+// weights: binpack, least, most, balanced, pod affinity. Returns 0, a CUDA
+// error code, NO_CLUSTER or STATIC_OVER.
 extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
                                  const float* weights, void* stream) {
   const int C = dims[D_C], KP = dims[D_KP], M = dims[D_M], N = dims[D_N],
             R = dims[D_R], G = dims[D_G], J = dims[D_J], Q = dims[D_Q],
-            S = dims[D_S], nkeys = dims[D_NKEYS], has_aff = dims[D_AFF];
+            S = dims[D_S], nkeys = dims[D_NKEYS], has_aff = dims[D_AFF],
+            CB = dims[D_CB], drf_ns = dims[D_DRF_NS];
+  const int P = drf_ns ? S * R : 0;
   if (R < 1 || R > MAX_R || C < 1 || M < 1 || N < 1 || G < 0 || J < 1 ||
-      J > 32 * BLOCK || Q < 1 || S < 0 || nkeys < 1 || nkeys > MAX_KEYS)
+      Q < 1 || S < 0 || nkeys < 1 || nkeys > MAX_KEYS || CB < 1 ||
+      CB > MAX_CB || P > MAX_PAIRS || (J + CB - 1) / CB > JOB_BITS * CBLOCK)
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto I = [&](int i) { return static_cast<const int*>(ptrs[i]); };
@@ -611,24 +965,26 @@ extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
   a.Q = Q;
   a.S = S;
   a.NH = dims[D_NH];
+  a.NKS = dims[D_NKS];
   a.gang = dims[D_GANG];
-  a.drf_ns = dims[D_DRF_NS];
+  a.drf_ns = drf_ns;
   a.nkeys = nkeys;
   a.has_aff = has_aff;
   for (int c = 0; c < MAX_KEYS; ++c)
     a.keys[c] = c < nkeys ? dims[N_DIMS + c] : 0;
-  int list_ints = 0;
+  a.SK = 0;
+  a.list_ints = 0;
   if (has_aff) {
     const AffEnv& ae = a.aff;
     if (ae.SK < 1 || ae.ETA < 1 || ae.SEL < 1 || ae.A < 1 || ae.B < 1 ||
         ae.PP < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    list_ints = aff_list_ints(ae.SK, ae.ETA, ae.SEL, ae.A, ae.B, ae.PP);
+    a.list_ints = aff_list_ints(ae.SK, ae.ETA, ae.SEL, ae.A, ae.B, ae.PP);
+    a.SK = ae.SK;
   }
-  const size_t smem =
-      static_cast<size_t>(M * (2 * R + G + 2) + 2 * Q + S * (R + 1) +
-                          list_ints) *
-      sizeof(float);
-  dyn_placer_kernel<<<1, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const Plan pl = make_plan(N, J, CB, C * M, M, R, G, Q, S, P, a.NKS, a.NH,
+                            a.SK, a.list_ints);
+  return launch_cluster(dyn_placer_kernel, CB,
+                        static_cast<size_t>(pl.words) * 4, STATIC_SHARED,
+                        static_cast<cudaStream_t>(stream), a);
 }

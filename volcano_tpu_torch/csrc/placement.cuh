@@ -1,5 +1,5 @@
 // The placement step shared by the round placers: one task slot placed on
-// the node axis, by one thread block or by one thread-block cluster.
+// the node axis by one thread-block cluster.
 //
 // Port of volcano_tpu/ops/pallas_place.py `_make_attempt` (feasibility ->
 // score -> lowest-index argmax -> commit) and `_dyn_score`, used by
@@ -12,16 +12,14 @@
 //
 // - A node's row (node_eval): feasibility on idle ("now") and on future
 //   idle, and the score, read from the static maps in global memory and
-//   from the live state through a LiveView: the whole [R, N] state in
-//   global memory (kernel 3), or one cluster block's slice of it in shared
-//   memory (kernel 1).
-// - block_pick (kernel 3): thread t evaluates the nodes i = t (mod BLOCK);
-//   a block reduction finds, for each view, the highest masked score and
-//   the lowest node index at that score, the reference's tie-break.
-// - cluster_pick (kernel 1): each block of a cluster of CB blocks evaluates
-//   its own contiguous slice of the nodes with the same row code and
-//   reduces it to one (score, lowest index) per view and the views' "any
-//   feasible" flags; after one cluster barrier every block reads the CB
+//   from the live state through a LiveView: one cluster block's slice of
+//   the [R, N] state in shared memory (kernels 1 and 3), or the whole state
+//   in global memory (the shard-local kernels' rows).
+// - cluster_pick (kernels 1 and 3): each block of a cluster of CB blocks
+//   evaluates its own contiguous slice of the nodes and reduces it to one
+//   (score, lowest index) per view, the reference's tie-break, and the
+//   views' "any feasible" flags; after one cluster barrier every block
+//   reads the CB
 //   partials through distributed shared memory and merges them. Max with
 //   the lowest index and OR are exact and order-free, so every block
 //   reaches the same pick, the one-block pick. The partials are
@@ -35,23 +33,22 @@
 // - restore (thread 0): puts saved columns back, newest first, when a
 //   gang is discarded. Subtracting back would not do: (a - r) + r != a in
 //   float32. Columns of different nodes are independent, so each cluster
-//   block restores the columns it saved and the result is the one-block
-//   kernel's.
+//   block restores the columns it saved and the result is that of one
+//   block restoring them all.
 // - Pod affinity (AffEnv, when the cycle compiles it in): the live counts
 //   cnt [SK, N] and anti [ETA, N] are global memory (each cluster block
-//   reads and writes only its slice), tot [SK, 1] is global memory in
-//   kernel 3 and a replica in each cluster block's shared memory in kernel
-//   1 (every block applies the same integer-valued deltas to it). Each
-//   attempt first runs the affinity pass: thread 0 lists the task's terms
-//   in shared memory (its required pairs, own anti terms, preferred pairs,
-//   and only the ETA / SEL rows the task matches: the rows it does not
-//   match add `false` or 0 * x, and every sum is integer-valued, so
-//   skipping them changes no bit), then one pass computes each node's
-//   affinity mask and raw preferred score into a scratch row and reduces
-//   the raw score's max and min over the live nodes (in the cluster, a
-//   second exchange). The pick, the second pass, ANDs the mask into both
-//   views and adds weight * the min-max normalised score last. aff_apply
-//   adds (or, on a gang discard, takes back) one placement's
+//   reads and writes only its slice), tot [SK, 1] a replica in each cluster
+//   block's shared memory (every block applies the same integer-valued
+//   deltas to it). Each attempt first runs the affinity pass: thread 0
+//   lists the task's terms in shared memory (its required pairs, own anti
+//   terms, preferred pairs, and only the ETA / SEL rows the task matches:
+//   the rows it does not match add `false` or 0 * x, and every sum is
+//   integer-valued, so skipping them changes no bit), then one pass
+//   computes each node's affinity mask and raw preferred score into a
+//   scratch row and reduces the raw score's max and min over the live
+//   nodes (a second exchange). The pick, the second pass, ANDs the mask
+//   into both views and adds weight * the min-max normalised score last.
+//   aff_apply adds (or, on a gang discard, takes back) one placement's
 //   domain-membership rows over a span of nodes. The discard takes back
 //   instead of copying back: the counts are integer-valued float32 far
 //   below 2^24, so (c + 1) - 1 == c exactly, and an undo costs what its
@@ -68,13 +65,15 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace placement {
 
 namespace cg = cooperative_groups;
 
-constexpr int BLOCK = 1024;
-constexpr int WARPS = BLOCK / 32;
-// threads of each block of the cluster kernel, and the largest cluster
+// the most warps a block has (sizes the reduction scratch)
+constexpr int WARPS = 32;
+// threads of each block of the cluster kernels, and the largest cluster
 constexpr int CBLOCK = 512;
 constexpr int CWARPS = CBLOCK / 32;
 constexpr int MAX_CB = 16;
@@ -437,32 +436,18 @@ __device__ void aff_pass(const AffEnv& ae, int N, const AffShared& as,
   }
 }
 
-// Called by every thread of the one-block kernels: the first pass of an
-// attempt over all N nodes; leaves the normalisation in `as`
-// (pallas_place._aff_eval).
-__device__ void aff_eval(const AffEnv& ae, int N, int s, AffShared& as,
-                         float* red) {
-  if (threadIdx.x == 0) aff_lists(ae, s, as);
-  __syncthreads();
-  float mx, mn;
-  aff_pass(ae, N, as, red, 0, N, BLOCK, mx, mn);
-  if (threadIdx.x == 0) aff_norm(as, mx, mn);
-  __syncthreads();
-}
-
 // Called by every thread: add `delta` (1 on a placement, -1 to take it back
 // on a gang discard) to the domain-membership rows of slot s's task placed
 // on `node` (pallas_place._aff_commit). Adds to members only: the
 // reference's + 0.0 elsewhere changes no count (counts are never -0.0).
 // `listed`: the term lists in `as` are slot s's already (a commit right
-// after the slot's aff_eval).
-// The rows change over nodes lo + t, lo + t + step, ... below hi (the
-// whole axis in the one-block kernels, a cluster block's slice in kernel
-// 1); `ae.tot` (the block's replica in kernel 1) changes by `delta` too.
+// after the slot's cluster_aff_eval).
+// The rows change over nodes lo + t, lo + t + step, ... below hi (a
+// cluster block's slice); `ae.tot` (the block's replica) changes by
+// `delta` too.
 __device__ void aff_apply(const AffEnv& ae, int N, int s, int node,
-                          float delta, AffShared& as, bool listed, int lo = 0,
-                          int hi = -1, int step = BLOCK) {
-  if (hi < 0) hi = N;
+                          float delta, AffShared& as, bool listed, int lo,
+                          int hi, int step) {
   if (!listed) {
     if (threadIdx.x == 0) aff_lists(ae, s, as);
     __syncthreads();
@@ -487,15 +472,6 @@ __device__ void aff_apply(const AffEnv& ae, int N, int s, int node,
       if (dom[i] == d) row[i] = row[i] + delta;
   }
   __syncthreads();
-}
-
-// Block-wide copy of the input affinity counts into the live outputs.
-__device__ void copy_aff(const AffEnv& ae, int N, const float* cnt_in,
-                         const float* tot_in, const float* anti_in) {
-  for (int j = threadIdx.x; j < ae.SK * N; j += BLOCK) ae.cnt[j] = cnt_in[j];
-  for (int j = threadIdx.x; j < ae.SK; j += BLOCK) ae.tot[j] = tot_in[j];
-  for (int j = threadIdx.x; j < ae.ETA * N; j += BLOCK)
-    ae.anti_cnt[j] = anti_in[j];
 }
 
 struct PickShared {
@@ -607,38 +583,6 @@ __device__ __forceinline__ void pick_warps(const PickShared& ps, int nwarps,
   }
 }
 
-// Called by every thread of the block with the same task (kernel 3): the
-// best node of both views over all N nodes and whether any node is
-// feasible in each.
-__device__ Pick block_pick(const NodeEnv& e, const Task& t, bool is_tgt,
-                           PickShared& ps, const AffEnv* ae = nullptr,
-                           const AffShared* as = nullptr) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float best[2];
-  int bidx[2];
-  bool found[2];
-  pick_rows(e, global_view(e), t, is_tgt, 0, e.N, BLOCK, ae, as, best, bidx,
-            found);
-  if (lane == 0)
-    for (int v = 0; v < 2; ++v) {
-      ps.red_s[v][warp] = best[v];
-      ps.red_i[v][warp] = bidx[v];
-    }
-  Pick pk;
-  pk.any_now = __syncthreads_or(found[0]);
-  pk.any_fut = __syncthreads_or(found[1]);
-  if (warp < 2) {
-    float bs;
-    int bi;
-    pick_warps(ps, WARPS, e.N, bs, bi);
-    if (lane == 0) ps.pick_i[warp] = bi;
-  }
-  __syncthreads();
-  pk.node_now = ps.pick_i[0];
-  pk.node_fut = ps.pick_i[1];
-  return pk;
-}
-
 // One cluster block's partial of one exchange: the pick's (score, lowest
 // index) per view and its "any feasible" bits, or the affinity pass's max
 // and min in s[0], s[1].
@@ -679,7 +623,7 @@ __device__ __forceinline__ ClusterSlot exchange_pick(cg::cluster_group& cluster,
 }
 
 // Called by every thread of every block of the cluster with the same task
-// (kernel 1): this block evaluates its nodes [lo, hi) from its slice of the
+// (kernels 1 and 3): this block evaluates its nodes [lo, hi) from its slice of the
 // live state (`lv`), then the cluster exchanges the blocks' partials
 // through `slot`. The pick is valid in thread 0 only.
 __device__ Pick cluster_pick(cg::cluster_group& cluster, const NodeEnv& e,
@@ -718,8 +662,8 @@ __device__ Pick cluster_pick(cg::cluster_group& cluster, const NodeEnv& e,
   return pk;
 }
 
-// Called by every thread of every block of the cluster (kernel 1): the
-// affinity pass of slot s over this block's nodes [lo, hi), then the raw
+// Called by every thread of every block of the cluster (kernels 1 and 3):
+// the affinity pass of slot s over this block's nodes [lo, hi), then the raw
 // score's max and min over the cluster through `slot`; leaves the
 // normalisation in `as`.
 __device__ void cluster_aff_eval(cg::cluster_group& cluster,
@@ -920,18 +864,169 @@ __device__ void restore(const NodeEnv& e, const LiveView& lv,
   }
 }
 
-// Block-wide copy of the input node state into the live output buffers
-// (kernel 3, which updates the global state in place).
-__device__ void copy_state(const NodeEnv& e, const float* idle_in,
-                           const float* pipe_in, const float* pods_in,
-                           const float* gpux_in) {
-  const int N = e.N;
-  for (int j = threadIdx.x; j < e.R * N; j += BLOCK) {
-    e.idle[j] = idle_in[j];
-    e.pipe[j] = pipe_in[j];
+// The live node state [2R + 1 + G, N] as four arrays: idle rows, pipe
+// rows, pods, GPU card rows.
+template <typename T>
+struct StateRows {
+  T* idle;
+  T* pipe;
+  T* pods;
+  T* gpux;
+  __device__ __forceinline__ T* row(int R, int N, int k) const {
+    if (k < R) return idle + k * N;
+    if (k < 2 * R) return pipe + (k - R) * N;
+    if (k == 2 * R) return pods;
+    return gpux + (k - 2 * R - 1) * N;
   }
-  for (int j = threadIdx.x; j < N; j += BLOCK) e.pods[j] = pods_in[j];
-  for (int j = threadIdx.x; j < e.G * N; j += BLOCK) e.gpux[j] = gpux_in[j];
+};
+
+// Block-wide: this cluster block's nodes [lo, hi) of the state `in` into
+// its shared-memory slice `st` [2R + 1 + G, cap] ...
+__device__ void load_slice(const NodeEnv& e, StateRows<const float> in,
+                           float* st, int cap, int lo, int hi) {
+  const int col = 2 * e.R + 1 + e.G;
+  for (int j = threadIdx.x; j < col * cap; j += CBLOCK) {
+    const int row = j / cap, i = lo + (j - row * cap);
+    if (i < hi) st[j] = in.row(e.R, e.N, row)[i];
+  }
+}
+
+// ... and back into the live output rows of `e`.
+__device__ void store_slice(const NodeEnv& e, const float* st, int cap,
+                            int lo, int hi) {
+  const int col = 2 * e.R + 1 + e.G;
+  const StateRows<float> out{e.idle, e.pipe, e.pods, e.gpux};
+  for (int j = threadIdx.x; j < col * cap; j += CBLOCK) {
+    const int row = j / cap, i = lo + (j - row * cap);
+    if (i < hi) out.row(e.R, e.N, row)[i] = st[j];
+  }
+}
+
+// returned by launch_cluster when the card cannot run one cluster of the
+// asked size, and when the kernel's static shared memory is over the
+// allowance its wrapper's shared-memory limit leaves for it
+constexpr int NO_CLUSTER = -1;
+constexpr int STATIC_OVER = -2;
+
+// What launch_cluster has set up for one kernel on one device: the dynamic
+// shared memory its attribute allows (never lowered, so a shape accepted
+// once stays launchable), whether it may run clusters past the portable 8
+// blocks, and the cluster shapes (CB, smem) the card has accepted. The
+// attribute calls and the occupancy query are host work a launch of a
+// tenth of a millisecond feels, and their answers do not change, so each
+// is made once.
+struct ClusterSetup {
+  int dev;
+  const void* kernel;
+  size_t smem_allowed;
+  bool wide;
+};
+struct ClusterShape {
+  int dev;
+  const void* kernel;
+  int CB;
+  size_t smem;
+};
+constexpr int SETUP_SLOTS = 16;
+constexpr int SHAPE_SLOTS = 64;
+
+struct ClusterCache {
+  std::mutex mu;
+  ClusterSetup setup[SETUP_SLOTS];
+  int n_setup = 0;
+  ClusterShape shape[SHAPE_SLOTS];
+  int n_shape = 0;  // shapes recorded; the newest replaces the oldest
+};
+
+inline ClusterCache& cluster_cache() {
+  static ClusterCache cache;
+  return cache;
+}
+
+// Set up `kernel` on device `dev` for clusters of CB blocks with `smem`
+// bytes of dynamic shared memory and ask the card whether it runs one;
+// `cfg` is the launch's configuration. Called with the cache locked, on a
+// shape not yet accepted. Returns 0, a CUDA error code, NO_CLUSTER or
+// STATIC_OVER.
+inline int cluster_setup(ClusterCache& c, const void* kernel, int dev,
+                         int CB, size_t smem, size_t static_max,
+                         const cudaLaunchConfig_t& cfg) {
+  cudaError_t err;
+  ClusterSetup* s = nullptr;
+  for (int k = 0; k < c.n_setup; ++k)
+    if (c.setup[k].dev == dev && c.setup[k].kernel == kernel) s = &c.setup[k];
+  if (s == nullptr) {
+    if (c.n_setup == SETUP_SLOTS) return static_cast<int>(cudaErrorUnknown);
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (fa.sharedSizeBytes > static_max) return STATIC_OVER;
+    s = &c.setup[c.n_setup++];
+    *s = ClusterSetup{dev, kernel, 48 * 1024, false};
+  }
+  if (smem > s->smem_allowed) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    s->smem_allowed = smem;
+  }
+  if (CB > 8 && !s->wide) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    s->wide = true;
+  }
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return NO_CLUSTER;
+  c.shape[c.n_shape % SHAPE_SLOTS] = ClusterShape{dev, kernel, CB, smem};
+  ++c.n_shape;
+  return 0;
+}
+
+// Launch `kernel` as one cluster of CB blocks of CBLOCK threads with `smem`
+// bytes of dynamic shared memory a block, the kernel's static shared
+// memory being at most `static_max` bytes; 0, a CUDA error code,
+// NO_CLUSTER when the card cannot run the cluster, or STATIC_OVER.
+template <typename... KT, typename... AT>
+int launch_cluster(void (*kernel)(KT...), int CB, size_t smem,
+                   size_t static_max, cudaStream_t stream, AT... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CB, 1, 1);
+  cfg.blockDim = dim3(CBLOCK, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CB;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* key = reinterpret_cast<const void*>(kernel);
+  {
+    ClusterCache& c = cluster_cache();
+    std::lock_guard<std::mutex> lock(c.mu);
+    bool known = false;
+    const int n = c.n_shape < SHAPE_SLOTS ? c.n_shape : SHAPE_SLOTS;
+    for (int k = 0; k < n && !known; ++k) {
+      const ClusterShape& sh = c.shape[k];
+      known = sh.dev == dev && sh.kernel == key && sh.CB == CB &&
+              sh.smem == smem;
+    }
+    if (!known) {
+      const int rc = cluster_setup(c, key, dev, CB, smem, static_max, cfg);
+      if (rc != 0) return rc;
+    }
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace placement

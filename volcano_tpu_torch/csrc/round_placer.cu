@@ -57,6 +57,10 @@ namespace {
 
 using namespace placement;
 
+// static shared memory the kernels may keep: ops/round_placer.py's
+// MAX_SHARED leaves this much of a block's 232,448 bytes for it
+constexpr size_t STATIC_SHARED = 2048;
+
 // pointer slots of round_placer_launch: the inputs in the order of
 // round_placer.PlacerArgs, then the outputs, then the scratch row pair
 enum Ptr {
@@ -77,9 +81,6 @@ enum Ptr {
 // integer dimensions and flags of round_placer_launch
 enum Dim { D_K, D_M, D_N, D_R, D_G, D_GANG, D_PIPELINING, D_AFF, D_SK, D_ETA,
            D_SEL, D_A, D_B, D_PP, D_CB, N_DIMS };
-
-// returned when the card cannot run one cluster of the asked size
-constexpr int NO_CLUSTER = -1;
 
 struct Args {
   NodeEnv env;           // idle, pipe, pods, gpux: the output buffers
@@ -119,23 +120,6 @@ inline size_t smem_words(int cap, int M, int R, int G, int SK,
   return col * cap + M * (col + 1) + 3 * M + SK + list_ints;
 }
 
-// row `row` of the live state: idle rows, pipe rows, pods, GPU card rows
-__device__ __forceinline__ const float* state_row(const Args& a, int row) {
-  const int R = a.env.R, N = a.env.N;
-  if (row < R) return a.idle_in + row * N;
-  if (row < 2 * R) return a.pipe_in + (row - R) * N;
-  if (row == 2 * R) return a.pods_in;
-  return a.gpux_in + (row - 2 * R - 1) * N;
-}
-
-__device__ __forceinline__ float* state_out(const Args& a, int row) {
-  const int R = a.env.R, N = a.env.N;
-  if (row < R) return a.env.idle + row * N;
-  if (row < 2 * R) return a.env.pipe + (row - R) * N;
-  if (row == 2 * R) return a.env.pods;
-  return a.env.gpux + (row - 2 * R - 1) * N;
-}
-
 __global__ void __launch_bounds__(CBLOCK)
     round_placer_kernel(const __grid_constant__ Args a) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -167,6 +151,10 @@ __global__ void __launch_bounds__(CBLOCK)
   __shared__ float aff_red[2 * WARPS];
   __shared__ int sec_stopped, sec_broke, sec_nalloc, sec_npipe, sec_nsave,
       sec_keep;
+  static_assert(sizeof(slots) + sizeof(ps) + sizeof(as) + sizeof(aff_red) +
+                        6 * sizeof(int) <=
+                    STATIC_SHARED,
+                "static shared memory over the allowance MAX_SHARED leaves");
   int xc = 0;  // exchanges so far: its parity picks the slot buffer
 
   // this block's affinity view: the counts in global memory, tot its replica
@@ -175,10 +163,8 @@ __global__ void __launch_bounds__(CBLOCK)
   if (aff && tid == 0) aff_bind(as, lists, ae);
 
   // this block's slice of the input state
-  for (int j = tid; j < col * cap; j += CBLOCK) {
-    const int row = j / cap, i = lo + (j - row * cap);
-    if (i < hi) st[j] = state_row(a, row)[i];
-  }
+  load_slice(e, {a.idle_in, a.pipe_in, a.pods_in, a.gpux_in}, st, cap, lo,
+             hi);
   if (aff) {
     for (int k = 0; k < ae.SK; ++k)
       for (int i = lo + tid; i < hi; i += CBLOCK)
@@ -280,10 +266,7 @@ __global__ void __launch_bounds__(CBLOCK)
   }
 
   // this block's slice of the final state
-  for (int j = tid; j < col * cap; j += CBLOCK) {
-    const int row = j / cap, i = lo + (j - row * cap);
-    if (i < hi) state_out(a, row)[i] = st[j];
-  }
+  store_slice(e, st, cap, lo, hi);
   if (aff && rank == 0)
     for (int k = tid; k < ae.SK; k += CBLOCK) a.aff.tot[k] = tot[k];
   // no block leaves while another may still read its exchange slots
@@ -313,50 +296,12 @@ __global__ void __launch_bounds__(CBLOCK) exchange_probe_kernel(int iters,
   cluster.sync();
 }
 
-// Launch `kernel` as one cluster of CB blocks of CBLOCK threads; 0, a CUDA
-// error code, or NO_CLUSTER when the card cannot run the cluster.
-template <typename... KT, typename... AT>
-int launch_cluster(void (*kernel)(KT...), int CB, size_t smem,
-                   cudaStream_t stream, AT... args) {
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (CB > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CB, 1, 1);
-  cfg.blockDim = dim3(CBLOCK, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CB;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return NO_CLUSTER;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // ptrs: the inputs in the order of round_placer.PlacerArgs, then the 10
 // outputs, then the [2, N] scratch (null where a part is off); dims: see
 // Dim; weights: binpack, least, most, balanced, pod affinity. Returns 0,
-// a CUDA error code, or NO_CLUSTER.
+// a CUDA error code, NO_CLUSTER or STATIC_OVER.
 extern "C" int round_placer_launch(void* const* ptrs, const int* dims,
                                    const float* weights, void* stream) {
   const int K = dims[D_K], M = dims[D_M], N = dims[D_N], R = dims[D_R],
@@ -415,7 +360,7 @@ extern "C" int round_placer_launch(void* const* ptrs, const int* dims,
   }
   const int cap = (N + CB - 1) / CB;
   const size_t smem = smem_words(cap, M, R, G, SK, list_ints) * 4;
-  return launch_cluster(round_placer_kernel, CB, smem,
+  return launch_cluster(round_placer_kernel, CB, smem, STATIC_SHARED,
                         static_cast<cudaStream_t>(stream), a);
 }
 
@@ -425,7 +370,7 @@ extern "C" int exchange_probe_launch(int CB, int iters, void* out,
                                      void* stream) {
   if (CB < 1 || CB > MAX_CB || iters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster(exchange_probe_kernel, CB, 0,
+  return launch_cluster(exchange_probe_kernel, CB, 0, STATIC_SHARED,
                         static_cast<cudaStream_t>(stream), iters,
                         static_cast<int*>(out));
 }

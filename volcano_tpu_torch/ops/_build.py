@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from typing import Dict, Iterable
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -97,3 +99,9 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(_paths(name)[1])
     return lib
+
+
+#: ``stream_handle(index)``: the raw handle of device ``index``'s current
+#: CUDA stream, for a launcher's stream argument, without building a
+#: ``torch.cuda.Stream`` object (None where PyTorch is built without CUDA)
+stream_handle = getattr(torch._C, "_cuda_getCurrentRawStream", None)

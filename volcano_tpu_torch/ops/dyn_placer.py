@@ -27,7 +27,8 @@ Two implementations share one signature and argument order (the order of
 ``_dyn_kernel``'s reader, pallas_place.py:684-747):
 
 - :func:`dyn_place_cuda` launches the hand-written CUDA kernel
-  (``csrc/dyn_placer.cu``), for tensors on a CUDA device;
+  (``csrc/dyn_placer.cu``), one thread-block cluster whose blocks each own
+  a slice of the jobs and of the nodes, for tensors on a CUDA device;
 - :func:`dyn_place_plain` is the plain PyTorch version of the same
   function, the port's counterpart of ``interpret=True``.
 
@@ -82,9 +83,24 @@ KEY_NS, KEY_QSHARE, KEY_READY, KEY_JSHARE = -1, -2, -3, -4
 KEY_HCOL = -8
 #: longest key list the kernel takes
 MAX_KEYS = 32
-#: threads of the kernel's one block (placement.cuh BLOCK), and the jobs
-#: each keeps in its eligibility bitmask
-BLOCK = 1024
+#: blocks of the kernel's cluster (8 or 16; 16 needs the card's consent
+#: to a cluster past the portable 8), chosen by the comparison of the two
+#: in chip_smoke.py phase 11 and scripts/dyn_phase_split.py; the largest
+#: cluster; threads a block (placement.cuh CBLOCK) and their warps
+CLUSTER = 16
+MAX_CB = 16
+CBLOCK = 512
+CWARPS = CBLOCK // 32
+#: shared memory a block can use on an H100 (232,448 bytes), less the
+#: 4,096 the kernel may keep in static shared memory (the source's
+#: STATIC_SHARED: a static_assert holds its declarations to it, and its
+#: launcher checks the built kernel against it)
+MAX_SHARED = 232448 - 4096
+#: rows of the kernel's dynamic key table, the most (namespace, dim) pairs
+#: its namespace fold takes, and the most jobs a thread keeps in its
+#: eligibility bitmask
+N_DYN = 4
+MAX_PAIRS = 32
 JOB_BITS = 32
 
 #: launches of the CUDA kernel since the count was last set to 0, and those
@@ -451,16 +467,50 @@ N_STAMPS = len(PHASES) + 3
 #: plan follows
 DIMS = ("C", "KP", "M", "N", "R", "G", "GR", "J", "Q", "S", "NH", "NKS",
         "gang", "pipelining", "drf_ns", "nkeys", "aff", "SK", "ETA", "SEL",
-        "A", "B", "PP")
+        "A", "B", "PP", "CB")
 
 
-def shared_bytes(M: int, R: int, G: int, Q: int, S: int,
+def plan_words(N: int, CB: int, C: int, M: int, R: int, G: int, Q: int,
+               S: int, P: int, NKS: int, NH: int, SK: int = 0,
+               list_ints: int = 0):
+    """(fixed, per job): the 4-byte words of dynamic shared memory a block
+    of the cluster takes (the source's make_plan), apart from its job rows,
+    and for each job of its slice. Fixed: the block's slice of the live
+    node state [2R + 1 + G, ceil(N / CB)], one pop's saved node columns
+    (node id + the same 2R + 1 + G values a slot), the launch's slot node,
+    mode and card [C * M], the affinity totals [SK] and term lists, the
+    queue allocations and deserved [Q, R], queue extra, gate and share
+    [Q], the totals [R], the namespace allocations and shares [S, R + 1],
+    and the fold's warp counts, offsets [P, CWARPS] and list lengths [P].
+    Per job: the static key rows [NKS], hdrf columns [NH], queue one-hot
+    [Q], namespace rows [2S], validf, allocation [R], the dynamic key
+    table [N_DYN], the fold's lists [P] and 11 int rows."""
+    col = 2 * R + 1 + G
+    cap = -(-N // CB)
+    fixed = (col * cap + M * (col + 1) + 3 * C * M + SK + list_ints
+             + 2 * Q * R + 3 * Q + R + S * (R + 1) + 2 * P * CWARPS + P)
+    per_job = NKS + NH + Q + 2 * S + 1 + R + N_DYN + P + 11
+    return fixed, per_job
+
+
+def shared_bytes(N: int, J: int, CB: int, C: int, M: int, R: int, G: int,
+                 Q: int, S: int, P: int, NKS: int, NH: int, SK: int = 0,
                  list_ints: int = 0) -> int:
-    """Dynamic shared memory of one launch: one pop's saved node columns
-    (node id + idle, pipe [R] + pods + GPU cards [G] per slot), the queue
-    gate and share [Q] each, the namespace allocations and shares
-    [S, R + 1], and one attempt's affinity term lists."""
-    return (M * (2 * R + G + 2) + 2 * Q + S * (R + 1) + list_ints) * 4
+    """Dynamic shared memory of each block of one launch (plan_words)."""
+    fixed, per_job = plan_words(N, CB, C, M, R, G, Q, S, P, NKS, NH, SK,
+                                list_ints)
+    return (fixed + per_job * -(-J // CB)) * 4
+
+
+def max_jobs(N: int, CB: int, C: int, M: int, R: int, G: int, Q: int,
+             S: int, P: int, NKS: int, NH: int, SK: int = 0,
+             list_ints: int = 0) -> int:
+    """The most jobs a launch of these shapes takes: CB slices whose rows
+    fit a block's MAX_SHARED, each within a bitmask a thread."""
+    fixed, per_job = plan_words(N, CB, C, M, R, G, Q, S, P, NKS, NH, SK,
+                                list_ints)
+    return CB * max(0, min((MAX_SHARED // 4 - fixed) // per_job,
+                           JOB_BITS * CBLOCK))
 
 
 def _check(cfg, C, KP, M, a: DynArgs):
@@ -511,33 +561,60 @@ def phase_split(stamps: torch.Tensor) -> dict:
                 launch_us=ns / 1000.0, cycles=cycles, pops=pops_)
 
 
+def launch_plan(cfg, C: int, M: int, a: DynArgs, cb: Optional[int] = None,
+                plan: Optional[List[int]] = None,
+                ad: Optional[dict] = None):
+    """(CB, dynamic shared bytes a block) of a launch as one cluster of
+    ``cb`` blocks (:data:`CLUSTER` when not given); raises on a shape the
+    kernel does not take, J past :func:`max_jobs` among them. ``plan``
+    (the key plan :func:`_check` returns) and ``ad`` (``aff_dims``) are
+    computed here when not given."""
+    R, N, _, _, J, Q, S, NH, G = _shapes(a)
+    CB = CLUSTER if cb is None else cb
+    # one cluster, per-dim registers, each block's slices of the node state
+    # and of the job rows in shared memory, a job bitmask per thread
+    if not 1 <= R <= rp.MAX_R:
+        raise ValueError(f"the kernel takes 1..{rp.MAX_R} resource dims, "
+                         f"got {R}")
+    if not 1 <= CB <= MAX_CB:
+        raise ValueError(f"the kernel takes clusters of 1..{MAX_CB} blocks, "
+                         f"not {CB}")
+    nkeys = len(key_plan(cfg, NH)[0] if plan is None else plan)
+    if nkeys > MAX_KEYS:
+        raise ValueError(f"{nkeys} ordering keys, over {MAX_KEYS}")
+    P = S * R if cfg.drf_ns_order else 0
+    if P > MAX_PAIRS:
+        raise ValueError(f"{S} namespaces x {R} dims are {P} fold pairs, "
+                         f"over {MAX_PAIRS}")
+    ad = rp.aff_dims(a) if ad is None else ad
+    rest = (C, M, R, G, Q, S, P, a.skeys.shape[0], NH, ad["SK"],
+            rp.aff_list_ints(ad))
+    smem = shared_bytes(N, J, CB, *rest)
+    jmax = max_jobs(N, CB, *rest)
+    if J > jmax:
+        raise ValueError(f"J={J} jobs need {smem} bytes of shared memory a "
+                         f"block at CB={CB}; the kernel takes J <= {jmax} "
+                         f"at these shapes")
+    return CB, smem
+
+
 def dyn_place_cuda(cfg, C: int, KP: int, M: int, args,
+                   cb: Optional[int] = None,
                    stamps: Optional[torch.Tensor] = None):
-    """Launch the CUDA kernel on the current stream (no synchronisation).
+    """Launch the CUDA kernel on the current stream (no synchronisation),
+    as one cluster of ``cb`` blocks (:data:`CLUSTER` when not given).
     ``stamps``, an int64 [N_STAMPS] tensor on the card, receives the
-    launch's phase split (:func:`phase_split`)."""
+    launch's phase split (:func:`phase_split`). Raises when the card cannot
+    run the cluster."""
     global launches, aff_launches
     a = unpack_args(cfg, args)
     if not a.idle.is_cuda:
         raise ValueError(f"the kernel takes tensors on a CUDA device, not "
                          f"{a.idle.device}")
     plan = _check(cfg, C, KP, M, a)
-    R, N, CM, _, J, Q, S, NH, G = _shapes(a)
-    # launch shape: one block, per-dim registers, a job bitmask per thread,
-    # the pop's saved columns and the per-queue and per-namespace state
-    if not 1 <= R <= rp.MAX_R:
-        raise ValueError(f"the kernel takes 1..{rp.MAX_R} resource dims, "
-                         f"got {R}")
-    if J > JOB_BITS * BLOCK:
-        raise ValueError(f"the kernel takes up to {JOB_BITS * BLOCK} "
-                         f"jobs, got {J}")
-    if len(plan) > MAX_KEYS:
-        raise ValueError(f"{len(plan)} ordering keys, over {MAX_KEYS}")
     ad = rp.aff_dims(a)
-    smem = shared_bytes(M, R, G, Q, S, rp.aff_list_ints(ad))
-    if smem > 48 * 1024:
-        raise ValueError(f"the launch needs {smem} bytes of shared memory, "
-                         f"over the 48 KiB a launch takes without opt-in")
+    CB, _ = launch_plan(cfg, C, M, a, cb, plan, ad)
+    R, N, CM, _, J, Q, S, NH, G = _shapes(a)
     dev = a.idle.device
     i32 = dict(dtype=torch.int32, device=dev)
     outs = [torch.empty((1, CM), **i32) for _ in range(3)]
@@ -559,7 +636,8 @@ def dyn_place_cuda(cfg, C: int, KP: int, M: int, args,
                 Q=Q, S=S, NH=NH, NKS=a.skeys.shape[0],
                 gang=int(bool(cfg.enable_gang)),
                 pipelining=int(bool(cfg.enable_pipelining)),
-                drf_ns=int(bool(cfg.drf_ns_order)), nkeys=len(plan), **ad)
+                drf_ns=int(bool(cfg.drf_ns_order)), nkeys=len(plan), CB=CB,
+                **ad)
     ints = (ctypes.c_int * (len(DIMS) + MAX_KEYS))(
         *[dims[k] for k in DIMS], *plan)
     weights = (ctypes.c_float * 5)(
@@ -567,8 +645,7 @@ def dyn_place_cuda(cfg, C: int, KP: int, M: int, args,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _library().dyn_placer_launch(ptrs, ints, weights,
                                       ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"dyn_placer launch failed: CUDA error {rc}")
+    rp.raise_launch(rc, "dyn_placer", CB)
     launches += 1
     aff_launches += ad["aff"]
     return tuple(o for o in outs if o is not None)

@@ -521,8 +521,9 @@ def _library():
 CLUSTER = 16
 MAX_CB = 16
 CBLOCK = 512
-#: shared memory a block can use on an H100 (232,448 bytes), less what
-#: the kernel keeps in static shared memory
+#: shared memory a block can use on an H100 (232,448 bytes), less the
+#: 2,048 the kernel may keep in static shared memory (the source's
+#: STATIC_SHARED, which its launcher checks against the built kernel)
 MAX_SHARED = 232448 - 2048
 #: outputs of the C launcher, after the inputs (absent ones as null)
 N_OUTS = 10
@@ -531,8 +532,11 @@ N_PTRS = len(PlacerArgs._fields) + N_OUTS + 1
 #: order of the integer dimensions and flags of the C launcher
 DIMS = ("K", "M", "N", "R", "G", "gang", "pipelining", "aff", "SK", "ETA",
         "SEL", "A", "B", "PP", "CB")
-#: the C launcher's code for a cluster the card cannot run
+#: the C launchers' codes for a cluster the card cannot run, and for a
+#: built kernel whose static shared memory is over what MAX_SHARED leaves
+#: for it (placement.cuh launch_cluster)
 NO_CLUSTER = -1
+STATIC_OVER = -2
 
 
 def cluster_slices(N: int, CB: int) -> List[tuple]:
@@ -684,16 +688,19 @@ def round_place_cuda(cfg, K: int, M: int, args, cb: Optional[int] = None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _library().round_placer_launch(ptrs, ints, weights,
                                         ctypes.c_void_p(stream))
-    _raise_launch(rc, "round_placer", CB)
+    raise_launch(rc, "round_placer", CB)
     launches += 1
     aff_launches += ad["aff"]
     return tuple(o for o in outs if o is not None)
 
 
-def _raise_launch(rc: int, what: str, CB: int) -> None:
+def raise_launch(rc: int, what: str, CB: int) -> None:
     if rc == NO_CLUSTER:
         raise RuntimeError(f"{what}: the card cannot run a cluster of {CB} "
                            f"blocks (cudaOccupancyMaxActiveClusters is 0)")
+    if rc == STATIC_OVER:
+        raise RuntimeError(f"{what}: the built kernel keeps more static "
+                           f"shared memory than its MAX_SHARED allows for")
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
@@ -707,7 +714,7 @@ def exchange_probe_cuda(CB: int, iters: int, device) -> torch.Tensor:
     rc = _library().exchange_probe_launch(CB, iters,
                                           ctypes.c_void_p(out.data_ptr()),
                                           ctypes.c_void_p(stream))
-    _raise_launch(rc, "exchange_probe", CB)
+    raise_launch(rc, "exchange_probe", CB)
     return out
 
 
