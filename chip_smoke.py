@@ -62,8 +62,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
    and its phase split at each size (``dyn_placer.phase_split``: block 0's
    clock64() cycles of the prologue, the queue gate and namespace fold,
    eligibility, the argmin with its exchange, the section's attempts and
-   the finalize); the segmented sum with CUDA events, with ``index_add_``
-   as its library call;
+   the finalize); the segmented sum at check B's second call (the
+   namespace fold after the cycle's first launch, few terms yet) and on
+   the same segments over seeded values (a term in every kept row: the
+   kernels line's reading), its device time per launch in a
+   ``torch.profiler`` trace and CUDA events around the run, with
+   ``index_add_`` as its library call;
 12. the pod-affinity step (kernel 2 of the reference) in both placers
    against the plain versions, bitwise: the first 3 launches of check E's
    cycle, and small built inputs (``ops/dyn_cases.py`` AFF_CASES) for the
@@ -119,24 +123,28 @@ Phases, each of which fails the run (exit code 1) when it fails:
    2,560, beside the plain version's and the bound; the combined triple of
    check G's first attempt against ``combine`` of the plain version;
 20. the wide candidate search (kernel 5 of the reference) against its plain
-   version, all 8 outputs bitwise: the first 32 launches of check I's cycle,
-   and small built inputs (``ops/dyn_cases.py`` WAVE_CASES) at 1 and 4
-   shards and W = 4, 8 and 16, with GPU cards;
+   version, the 4 per-shard outputs and the 5 combined ones (against
+   ``combine`` of the plain version) bitwise: the first 32 launches of
+   check I's cycle, and small built inputs (``ops/dyn_cases.py``
+   WAVE_CASES) at 1 and 4 shards and W = 4, 8 and 16, with GPU cards;
 21. check I, the wavefront walk at the north star: ``Session(
    _synthetic_cluster(10000, 6250, 16), gang + nodeorder with
    leastrequested and balancedresource at 1 and every other weight 0,
    sharding: true, wave_width: 8).run_allocate()`` on the one card (a mesh
    of one shard): waves of 8 slots, one kernel-5 launch a wave; the counts
    are set to 0 just before and read just after, kernel 5 must have
-   launched and kernel 4 not; the fingerprint must be the one the fused
+   launched and kernel 4 not, and ``shard_wave.combine`` never (the
+   kernel combines); the fingerprint must be the one the fused
    Session (no sharding, the same conf: kernel 1, W clamped to 1) gives on
    the same cluster, with 100,000 binds;
 22. check J: check H's configurations on the wave path, on 4 virtual
    shards of the card: the binpack configuration at W = 4 and W = 16 gives
    0bed0b3363cfef13, and the shipped conf at (1024, 640, 16) at W = 8 gives
-   3ae3ff8ac7b0b9b7 (check C's; its dynamic keys yield inside waves);
+   3ae3ff8ac7b0b9b7 (check C's; its dynamic keys yield inside waves),
+   each without a call of ``shard_wave.combine``;
 23. the wide candidate kernel's time: device time per launch in a
-   ``torch.profiler`` trace at check I's shapes (1 shard of 10,240 rows, 8
+   ``torch.profiler`` trace and CUDA events around the run (the wrapper's
+   host pace) at check I's first launch (1 shard of 10,240 rows, 8
    columns) and at 4 shards of 2,560, beside the plain version's and the
    bound;
 24. kernel 6 (graphcheck's planted shard gather,
@@ -329,6 +337,26 @@ class SegFoldTap:
 
     def __exit__(self, *exc):
         self.module.seg_fold = self.wrapped
+
+
+class CountCalls:
+    """While installed (a context), counts the calls of ``module.name``,
+    which it passes on."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+        self.wrapped = getattr(module, name)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.wrapped(*args, **kwargs)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.wrapped)
 
 
 class Recorder:
@@ -746,9 +774,11 @@ def compare_seg_fold_plain(calls):
 
 
 def time_seg_fold(call):
-    """Segmented sum ms per launch (CUDA events), plain version ms per call,
-    ``index_add_`` ms per call (the library call for the same sums, in an
-    order of its own), and the least time for the same work on this card."""
+    """Segmented sum ms per launch (device time in a ``torch.profiler``
+    trace; CUDA events around the run, ``events_ms``), plain version ms per
+    call, ``index_add_`` ms per call (the library call for the same sums,
+    in an order of its own), and the least time for the same work on this
+    card."""
     import torch
 
     from volcano_tpu_torch.ops import seg_fold as sf
@@ -767,7 +797,7 @@ def time_seg_fold(call):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    ms = events(lambda: sf.seg_fold_cuda(vals, seg, num), 200)
+    ms, traced, events_ms = seg_fold_device_ms(call)
     keep = (seg >= 0) & (seg < num)
     idx = torch.where(keep, seg, num).long()
     acc = torch.zeros((num + 1, vals.shape[1]), device=vals.device)
@@ -779,15 +809,42 @@ def time_seg_fold(call):
         sf.seg_fold_plain(vals, seg, num)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 100
-    # each input read once, the output written once; one add per kept row
-    # and dim
+    # each input read once, the output written once; one add per term
+    # (a kept row's value that is not an exact zero)
     nbytes = (vals.numel() + seg.numel() + num * vals.shape[1]) * 4
-    ops = int(keep.sum()) * vals.shape[1]
+    ops = int(((vals != 0) & keep[:, None]).sum())
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(ms=ms, traced=traced, events_ms=events_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                rows=vals.shape[0], segments=num, bytes=nbytes, ops=ops)
+                rows=vals.shape[0], segments=num, terms=ops, bytes=nbytes,
+                ops=ops)
+
+
+def seg_fold_device_ms(call, reps=200):
+    """The segmented sum's device ms per launch in a ``torch.profiler``
+    trace of ``reps`` launches (and how many the trace kept), and CUDA
+    events around the run (the launch's pace: the wrapper's host work
+    where it outlasts the kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from volcano_tpu_torch.ops import seg_fold as sf
+    vals, seg, num = call
+    for _ in range(3):
+        sf.seg_fold_cuda(vals, seg, num)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            sf.seg_fold_cuda(vals, seg, num)
+        end.record()
+        torch.cuda.synchronize()
+    ms, traced = traced_device_ms(prof, "seg_fold", reps)
+    return ms, traced, start.elapsed_time(end) / reps
 
 
 def aff_built_calls():
@@ -1061,20 +1118,23 @@ def wave_built_calls():
 
 
 def compare_wave_plain(calls):
-    """Max |kernel - plain| over the 4 outputs of every launch; raises
-    unless all are bitwise equal."""
+    """Max |kernel - plain| over the 4 per-shard outputs of every launch and
+    its 5 combined ones (against ``combine`` of the plain version's);
+    raises unless all are bitwise equal."""
     import torch
 
     from volcano_tpu_torch.ops import shard_wave as sw
     worst = 0.0
     for cfg, D, C, args in calls:
         got = sw.shard_wave_cuda(cfg, D, C, args)
-        want = sw.shard_wave_plain_all(cfg, D, C, args)
+        want = sw.shard_wave_plain_combined(cfg, D, C, args)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
+        for name, g, w in zip(got._fields, got, want):
+            w = w.contiguous()
             worst = max(worst, float((g.double() - w.double()).abs().max()))
-            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-                raise AssertionError("wave kernel and plain version differ")
+            if not bitwise_equal(g, w):
+                raise AssertionError(f"wave kernel and plain version differ "
+                                     f"in {name}")
     return worst
 
 
@@ -1462,8 +1522,13 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
         # the namespace fold of the state after the cycle's first launch
+        # (few terms yet), then the same segments over seeded values (a
+        # term in every kept row, the most a fold at check B's shapes
+        # takes): the kernels line gives the second
         t = time_seg_fold(sf_calls[1])
         log(json.dumps({"phase": "seg_fold_time", **t}))
+        t = time_seg_fold(sf_calls[-2])
+        log(json.dumps({"phase": "seg_fold_time_terms", **t}))
         kernels.append({
             "name": "seg_fold", "route": "cuda",
             "source": "volcano_tpu_torch/csrc/seg_fold.cu",
@@ -1651,16 +1716,11 @@ def main():
     clock.lap("17 check_G")
     try:
         zero_shard_counts()
-        combines = []
-        plain_combine = sp.combine
-        sp.combine = lambda *a: combines.append(1) or plain_combine(*a)
-        try:
-            t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        with CountCalls(sp, "combine") as combines:
             ssn_g.run_allocate()
-            session_g_ms = (time.perf_counter() - t0) * 1000
-        finally:
-            sp.combine = plain_combine
-        counts_g = dict(shard_counts(), combine_calls=len(combines))
+        session_g_ms = (time.perf_counter() - t0) * 1000
+        counts_g = dict(shard_counts(), combine_calls=combines.calls)
         res = ssn_g.last_allocate
         sha = fingerprint(res.task_node, res.task_mode)
         log(json.dumps({"phase": "check_G", "nodes": FULL[0],
@@ -1673,7 +1733,8 @@ def main():
                         "binds": len(ssn_g.binds), **counts_g,
                         "fingerprint": sha}))
         assert counts_g["launches"] > 0, "check G launched no shard kernel"
-        assert not combines, "the CUDA route called shard_placer.combine"
+        assert combines.calls == 0, \
+            "the CUDA route called shard_placer.combine"
         assert sha == FULL_SHA, f"fingerprint {sha} != {FULL_SHA}"
         assert len(ssn_g.binds) == FULL[1] * FULL[2], len(ssn_g.binds)
     except Exception as e:
@@ -1797,9 +1858,10 @@ def main():
         del fused
         zero_wave_counts()
         t0 = time.perf_counter()
-        ssn_i.run_allocate()
+        with CountCalls(sw, "combine") as combines:
+            ssn_i.run_allocate()
         session_i_ms = (time.perf_counter() - t0) * 1000
-        counts_i = wave_counts()
+        counts_i = dict(wave_counts(), combine_calls=combines.calls)
         res = ssn_i.last_allocate
         sha = fingerprint(res.task_node, res.task_mode)
         log(json.dumps({"phase": "check_I", "nodes": FULL[0],
@@ -1817,6 +1879,8 @@ def main():
         assert counts_i["launches"] > 0, "check I launched no wave kernel"
         assert counts_i["launches"] == counts_i["waves"], counts_i
         assert counts_i["shard_candidates_launches"] == 0, counts_i
+        assert counts_i["combine_calls"] == 0, \
+            "the CUDA route called shard_wave.combine"
         assert sha == sha_fused, f"fingerprint {sha} != {sha_fused}"
         assert len(ssn_i.binds) == FULL[1] * FULL[2], len(ssn_i.binds)
     except Exception as e:
@@ -1833,7 +1897,8 @@ def main():
         for W in WAVES_J[0]:
             zero_wave_counts()
             t0 = time.perf_counter()
-            with launch_record.recording() as launched:
+            with launch_record.recording() as launched, \
+                    CountCalls(sw, "combine") as combines:
                 res = make_sharded_allocate(
                     AllocateConfig(binpack_weight=1.0, wave_width=W),
                     NodeMesh(("cuda",) * 4), s_d)(s_d, e_d)
@@ -1841,7 +1906,8 @@ def main():
                 shard_records["check_J[W=4,4dev]"] = launched
             tn, tm = res.task_node.cpu().numpy(), res.task_mode.cpu().numpy()
             out_j[W] = dict(cycle_ms=(time.perf_counter() - t0) * 1000,
-                            **wave_counts(), placed=int((tm > 0).sum()),
+                            **wave_counts(), combine_calls=combines.calls,
+                            placed=int((tm > 0).sum()),
                             jobs_ready=int(res.job_ready.sum()),
                             fingerprint=fingerprint(tn, tm))
         sub_j = Session(_synthetic_cluster(*SUB), shipped, device="cuda")
@@ -1849,14 +1915,16 @@ def main():
         W = WAVES_J[1]
         zero_wave_counts()
         t0 = time.perf_counter()
-        res = make_sharded_allocate(dataclasses.replace(cfg_j, wave_width=W),
-                                    NodeMesh(("cuda",) * 4),
-                                    sub_j.snap)(sub_j.snap, extras_j)
+        with CountCalls(sw, "combine") as combines:
+            res = make_sharded_allocate(
+                dataclasses.replace(cfg_j, wave_width=W),
+                NodeMesh(("cuda",) * 4), sub_j.snap)(sub_j.snap, extras_j)
         sha_j = fingerprint(res.task_node.cpu().numpy(),
                             res.task_mode.cpu().numpy())
         shipped_j = dict(wave_width=W,
                          cycle_ms=(time.perf_counter() - t0) * 1000,
-                         **wave_counts(), fingerprint=sha_j)
+                         **wave_counts(), combine_calls=combines.calls,
+                         fingerprint=sha_j)
         log(json.dumps({"phase": "check_J", **{
             f"binpack_4_shards_W{W}": v for W, v in out_j.items()},
             "shipped_conf_4_shards": shipped_j}))
@@ -1864,8 +1932,10 @@ def main():
             got = (o["fingerprint"], o["placed"], o["jobs_ready"])
             assert got == h_want, (W, got)
             assert o["launches"] > 0 and o["shard_candidates_launches"] == 0
+            assert o["combine_calls"] == 0, (W, o)
         assert sha_j == CHECK_C, f"J: shipped conf gave {sha_j}"
         assert shipped_j["launches"] > 0, shipped_j
+        assert shipped_j["combine_calls"] == 0, shipped_j
     except Exception as e:
         fail("22 (check J, the wave path on 4 shards)", e)
 

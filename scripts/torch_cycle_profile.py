@@ -23,8 +23,9 @@ attempt, and ``--window`` counts attempts. The
 ``chip_smoke.wave_conf`` (gang + nodeorder, least-requested and balanced
 at 1, no binpack) with ``sharding: true`` and ``wave_width: 8``, the
 wavefront walk (waves of 8 slots, each one launch of the wide candidate
-kernel, the combine, the batched-commit check, then the batched commit or
-the in-order walk); its numbers are per pop and per wave, and
+kernel, whose last blocks also combine the shards' lists, the
+batched-commit check, then the batched commit or the in-order walk); its
+numbers are per pop and per wave, and
 ``--window`` counts waves. The script packs and
 uploads the snapshot once, runs the allocate cycle once to build and warm
 the kernels, then:
@@ -32,7 +33,7 @@ the kernels, then:
 1. times ``--cycles`` plain runs of the cycle on the host clock (each ends
    in a synchronize), with the kernels' launch counts;
 2. runs it once more under ``torch.profiler`` and reports the device time
-   by kernel name and the union of device busy intervals against the
+   by kernel name (the 12 longest, and every kernel of the port) and the union of device busy intervals against the
    profiled wall time (the device's idle share). With ``--window N`` the
    profiled run stops after N placer launches: a steady window of a long
    cycle, whose numbers are per round. The profiled run also reports the
@@ -41,7 +42,7 @@ the kernels, then:
    ``lex_argmin`` and ``gather_slot_tables`` in ``ops/allocate_scan.py``,
    the shard placer's ``combine`` (no call on the card, where kernel 4
    combines; the plain route's), the wave walk's steps (``wave_sweep``,
-   ``wave_combine``, ``wave_fast_ok`` with its readback,
+   the kernel-5 launch with its combine, ``wave_fast_ok`` with its readback,
    ``wave_commit_fast``, ``wave_commit_slow``) and the placer calls,
    wrapped in a profiler span; the rest of a round is the loop's own
    tensor work) and
@@ -226,8 +227,8 @@ def main():
     if sw is not None and hasattr(tas, "_step"):
         tas._step = lambda name: record_function("step:" + name)
         sw.waves = 0
-        steps += ["wave_sweep", "wave_combine", "wave_fast_ok",
-                  "wave_commit_fast", "wave_commit_slow"]
+        steps += ["wave_sweep", "wave_fast_ok", "wave_commit_fast",
+                  "wave_commit_slow"]
     steps += [names[k] for k in seams]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -264,7 +265,11 @@ def main():
         d[0] += 1
         d[1] += (e - s) / 1000
     busy_ms = busy_us(intervals) / 1000
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    # the 12 that took the most device time, and every kernel of the port
+    # (each in an anonymous namespace of its csrc/ source)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    top = top[:12] + [kv for kv in top[12:]
+                      if kv[0].startswith("(anonymous namespace)::")]
     out = {
         "card": card, "cell": args.cell,
         "nodes": int(ssn.snap.nodes.valid.sum()),

@@ -3,11 +3,15 @@ round placer (with and without its pod-affinity step, as clusters of 8 and
 16 blocks), the dynamic-key placer as clusters of 8 and 16 blocks (with
 and without its pod-affinity step, up to the most jobs its shared memory
 takes), the segmented
-sum, the shard-local candidate search (per-shard outputs and the combined
-triple, at every block shape of its grid) and its wide (wavefront) form,
-and kernel 6 (graphcheck's planted shard gather); the sharded cycle's
-waits on the card, with and without waves; and sort_order, enqueue and
-backfill on the card against the CPU.
+sum (past one shared-memory tile and past the grid's warps, with -0.0,
+NaN and infinities planted), the shard-local candidate search (per-shard
+outputs and the combined triple, at every block shape of its grid) and its
+wide (wavefront) form (per-shard lists and the combined lists, with a
+short last block and ties across blocks, launches of other shapes in a
+row), and kernel 6
+(graphcheck's planted shard gather); the sharded cycle's waits on the
+card, with and without waves, and the wave cycle without a ``combine``;
+and sort_order, enqueue and backfill on the card against the CPU.
 
 Imports nothing of JAX, so it runs on a machine with a card and no JAX:
 
@@ -371,6 +375,74 @@ def test_seg_fold_kernel_matches_plain_bitwise(A, D, num):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def same_bits_or_nan(got, want):
+    """Equal float32 bits, a NaN only where the other has one: the card's
+    float add returns the canonical NaN where the CPU's keeps an operand's
+    payload, so a NaN sum's bits are the hardware's, not the order's."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            want[~nan].view(torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,D,num", [(3000, 2, 4), (2500, 3, 1500),
+                                     (1024, 2, 5), (40, 2, 12)])
+def test_seg_fold_kernel_with_planted_values(A, D, num):
+    """Past one shared-memory tile of rows (1,024) with a ragged last one,
+    and num x D past a block's warps (8) and past the grid's (the warps
+    then loop over the pairs), with -0.0, NaN and infinities among the
+    values, dropped rows (-1, num and beyond) and empty segments."""
+    need_card()
+    from volcano_tpu_torch.ops import seg_fold as sf
+    g = torch.Generator().manual_seed(A + D)
+    vals = (torch.randn((A, D), generator=g)
+            * 10.0 ** torch.randint(-3, 8, (A, D), generator=g)).float()
+    pick = torch.rand((A, D), generator=g)
+    vals[pick < 0.2] = 0.0
+    vals[(pick >= 0.2) & (pick < 0.3)] = -0.0
+    vals[(pick >= 0.3) & (pick < 0.31)] = float("inf")
+    vals[(pick >= 0.31) & (pick < 0.32)] = float("-inf")
+    vals[(pick >= 0.32) & (pick < 0.325)] = float("nan")
+    seg = torch.randint(-1, num + 3, (A,), generator=g, dtype=torch.int32)
+    seg[seg == 1] = 0                       # segment 1 stays empty
+    seg[:7] = 0                             # a sum of -0.0 terms only
+    vals[:7] = -0.0
+    vals, seg = vals.cuda(), seg.cuda()
+    want = sf.seg_fold_plain(vals, seg, num)
+    before = sf.launches
+    got = sf.seg_fold(vals, seg, num)
+    torch.cuda.synchronize()
+    assert sf.launches == before + 1
+    assert got.shape == want.shape == (num, D)
+    assert same_bits_or_nan(got, want)
+    assert (got[1].view(torch.int32) == 0).all()    # +0.0, the empty sum
+
+
+@pytest.mark.cuda
+def test_seg_fold_kernel_at_its_limits():
+    """42 dims (a tile of 256 rows still fits) bitwise, 43 refused by the
+    wrapper; and 6 M (segment, dim) pairs, more than the 2 x 132 blocks'
+    shared memory keeps at once, on more blocks."""
+    need_card()
+    from volcano_tpu_torch.ops import seg_fold as sf
+    g = torch.Generator().manual_seed(7)
+    for A, D, num in ((3000, sf.MAX_DIMS, 40), (3000, 2, 3_000_000)):
+        vals = (torch.randn((A, D), generator=g)
+                * 10.0 ** torch.randint(-3, 8, (A, D), generator=g)).float()
+        seg = torch.randint(-1, min(num, 50) + 1, (A,), generator=g,
+                            dtype=torch.int32)
+        seg[::5] = num - 1
+        vals, seg = vals.cuda(), seg.cuda()
+        want = sf.seg_fold_plain(vals, seg, num)
+        got = sf.seg_fold_cuda(vals, seg, num)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError, match="at most 42 dims"):
+        sf.seg_fold_cuda(torch.ones((8, 43), device="cuda"),
+                         torch.zeros(8, dtype=torch.int32, device="cuda"), 2)
+
+
 @pytest.mark.cuda
 def test_fair_shares_on_the_card_match_the_cpu():
     """namespace_shares and the hdrf level keys run on the card (no copy to
@@ -595,7 +667,16 @@ def test_wave_kernel_matches_plain_bitwise(case, D, W, gpu):
     got = sw.shard_wave(cfg, D, C, t)
     torch.cuda.synchronize()
     assert sw.launches == before + 1
-    assert_same(got, want)
+    assert_wave_same(got, want, C, t)
+
+
+def assert_wave_same(got, want, C, t):
+    """The kernel's per-shard lists against the plain version's, and its
+    combined lists against ``combine`` of the plain version's, bitwise."""
+    assert_same(got[:4], want[:4])
+    combined = sw.combine(want, C, t[-1].shape[1])
+    assert_same(got[4:], [x.contiguous() for x in combined])
+    assert got.e_found.dtype == torch.bool
 
 
 @pytest.mark.cuda
@@ -608,8 +689,107 @@ def test_wave_kernel_at_full_width():
     for D, NL in ((1, 10240), (4, 2560)):
         t = [torch.from_numpy(a).cuda() for a in
              make_wave_inputs(3, D=D, W=8, NL=NL, ties=True)]
-        assert_same(sw.shard_wave(cfg, D, 8, t),
-                    sw.shard_wave_plain_all(cfg, D, 8, t))
+        assert_wave_same(sw.shard_wave(cfg, D, 8, t),
+                         sw.shard_wave_plain_all(cfg, D, 8, t), 8, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("case", ["mixed", "ties_across_shards",
+                                  "nothing_feasible", "fewer_than_depth"])
+def test_wave_split_row_grid_matches_plain_bitwise(case, D):
+    """Shards of 300 rows, a multiple of no block's rows: two blocks a shard
+    and column, the last one short, W = 16 columns past the depth C = 8;
+    then every 7th row the same node, so the best recurs in every block
+    and shard and the raw ties add up."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=True, **PLACER_WEIGHTS)
+    NL, W, C = 300, 16, 8
+    t = [torch.from_numpy(a).cuda() for a in make_wave_inputs(
+        1, D=D, W=W, NL=NL, gpu=True, **WAVE_CASES[case])]
+    assert_wave_same(sw.shard_wave_cuda(cfg, D, C, t),
+                     sw.shard_wave_plain_all(cfg, D, C, t), C, t)
+    t = [torch.from_numpy(a) for a in make_wave_inputs(0, D=D, W=W, NL=NL,
+                                                       gpu=True)]
+    t[1][0] = t[1][3] = -1                # no preferred node, no volume pin
+    src = torch.arange(D * NL) % 7
+    t = [x.cuda() for x in t[:2]] + [x[:, src].contiguous().cuda()
+                                     for x in t[2:]]
+    got = sw.shard_wave_cuda(cfg, D, C, t)
+    assert_wave_same(got, sw.shard_wave_plain_all(cfg, D, C, t), C, t)
+    assert int(got.e_ties.max()) >= D * NL // 7
+
+
+@pytest.mark.cuda
+def test_wave_launches_in_a_row_reset_the_counters():
+    """Launches of other widths and shard counts one after another on the
+    stream, each reusing the column counters its predecessor put back to
+    0, then the first shape again."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=True, **PLACER_WEIGHTS)
+    shapes = [(1, 8, 300), (4, 16, 300), (2, 4, 48), (1, 8, 300)]
+    runs = []
+    for D, W, NL in shapes:
+        C = wave_candidate_depth(W)
+        t = [torch.from_numpy(a).cuda() for a in make_wave_inputs(
+            D, D=D, W=W, NL=NL, gpu=True, ties=True)]
+        runs.append((sw.shard_wave_cuda(cfg, D, C, t), C, t))
+    torch.cuda.synchronize()
+    for got, C, t in runs:
+        assert_wave_same(got, sw.shard_wave_plain_all(cfg, got.count.shape[1],
+                                                      C, t), C, t)
+    assert_same(runs[0][0], runs[-1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,NL,W", [(1, 20000, 4), (9, 300, 4),
+                                    (16, 130, 8), (3, 17000, 2)])
+def test_wave_merge_tree_levels_match_plain_bitwise(D, NL, W):
+    """The last block's tree past two levels (79 blocks a shard: 10 lists,
+    then 2, then 1), the combine past one merge (9 and 16 shards), one
+    block a shard: bitwise against the plain version and combine."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=False, least_allocated_weight=1.0,
+                         balanced_weight=1.0)
+    C = wave_candidate_depth(W)
+    t = [torch.from_numpy(a).cuda() for a in
+         make_wave_inputs(4, D=D, W=W, NL=NL, ties=True)]
+    assert_wave_same(sw.shard_wave_cuda(cfg, D, C, t),
+                     sw.shard_wave_plain_all(cfg, D, C, t), C, t)
+
+
+@pytest.mark.cuda
+def test_wave_plan_follows_its_tensors_and_stream():
+    """The launch plan is reused for the same node tensors, rebuilt when
+    one of them is re-pointed in place (``set_``: the same object at a new
+    address) and when the stream changes, which also takes scratch of its
+    own; each launch gives the plain version's lists."""
+    need_card()
+    cfg = AllocateConfig(enable_gpu=True, **PLACER_WEIGHTS)
+    D, W, C = 2, 8, 8
+    t = [torch.from_numpy(a).cuda() for a in
+         make_wave_inputs(0, D=D, W=W, NL=300, gpu=True, ties=True)]
+    other = [torch.from_numpy(a).cuda() for a in
+             make_wave_inputs(1, D=D, W=W, NL=300, gpu=True, ties=True)]
+    before = sw.shard_wave_plain_all(cfg, D, C, t)
+    assert_wave_same(sw.shard_wave_cuda(cfg, D, C, t), before, C, t)
+    plan = sw._plan
+    sw.shard_wave_cuda(cfg, D, C, t)
+    assert sw._plan is plan
+    for x, y in zip(t[2:], other[2:]):
+        x.set_(y.clone())
+    got = sw.shard_wave_cuda(cfg, D, C, t)
+    assert sw._plan is not plan
+    want = sw.shard_wave_plain_all(cfg, D, C, t)     # the new node rows
+    assert not torch.equal(want.idx, before.idx)
+    assert_wave_same(got, want, C, t)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = sw.shard_wave_cuda(cfg, D, C, t)
+    torch.cuda.synchronize()
+    assert sw._plan.stream == side.cuda_stream
+    assert_wave_same(got, want, C, t)
 
 
 @pytest.mark.cuda
@@ -661,8 +841,38 @@ def test_wave_cycle_on_the_card():
     assert htod == []
     assert low <= len(syncs) <= low + (sw.waves - sw.fast_waves) * 7 + 8
     plain = make_allocate_cycle(wide, mesh=mesh,
-                                wave_placer=sw.shard_wave_plain_all)
+                                wave_placer=sw.shard_wave_plain_combined)
     assert torch.equal(plain(s, e).packed_decisions().cpu(), seq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4])
+def test_wave_cycle_on_the_card_runs_no_combine(monkeypatch, D):
+    """The kernel's last blocks combine the shards' lists: the CUDA route
+    of the wave walk never calls ``shard_wave.combine``, and gives the
+    plain route's decisions."""
+    need_card()
+    from volcano_tpu_torch.arrays import pack, to_device
+    from volcano_tpu_torch.ops.allocate_scan import (AllocateExtras,
+                                                     make_allocate_cycle)
+    from volcano_tpu_torch.parallel import NodeMesh
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    snap, _ = pack(_synthetic_cluster(256, 24, 8))
+    s = to_device(snap, "cuda")
+    e = to_device(AllocateExtras.neutral(snap), "cuda")
+    cfg = AllocateConfig(binpack_weight=1.0, enable_gpu=False, wave_width=8)
+    mesh = NodeMesh(("cuda",) * D)
+    want = make_allocate_cycle(
+        cfg, mesh=mesh, wave_placer=sw.shard_wave_plain_combined)(
+        s, e).packed_decisions().cpu()
+    calls = []
+    combine = sw.combine
+    monkeypatch.setattr(sw, "combine",
+                        lambda *a: calls.append(1) or combine(*a))
+    before = sw.launches
+    got = make_allocate_cycle(cfg, mesh=mesh)(s, e).packed_decisions().cpu()
+    assert sw.launches > before and calls == []
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

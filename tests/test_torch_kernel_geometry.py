@@ -1,13 +1,17 @@
-"""The host side of the redesigned kernels 1, 3 and 4, on the CPU: how the
-round placer's cluster splits the node axis and what shared memory each
-block takes, how the dynamic-key placer's cluster splits the jobs and the
-nodes, what shared memory each of its blocks takes and the most jobs it
-takes, the candidate kernel's grid of split-row blocks, and the combined
-triple the sharded cycle reads on the plain route.
+"""The host side of the redesigned kernels 1, 3, 4 and 5, on the CPU: how
+the round placer's cluster splits the node axis and what shared memory
+each block takes, how the dynamic-key placer's cluster splits the jobs and
+the nodes, what shared memory each of its blocks takes and the most jobs
+it takes, the candidate kernel's grid of split-row blocks, and the
+combined triple the sharded cycle reads on the plain route; the wide
+candidate kernel's grid, a model of its blocks' partial lists merged and
+combined, and the combined lists the wave walk reads on the plain route.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``,
 marked ``cuda``). Imports nothing of JAX.
 """
+
+import math
 
 import pytest
 import torch
@@ -15,10 +19,14 @@ import torch
 from volcano_tpu_torch.ops import dyn_placer as dp
 from volcano_tpu_torch.ops import round_placer as rp
 from volcano_tpu_torch.ops import shard_placer as sp
-from volcano_tpu_torch.ops.allocate_scan import AllocateConfig
+from volcano_tpu_torch.ops import shard_wave as sw
+from volcano_tpu_torch.ops.allocate_scan import (AllocateConfig,
+                                                 wave_candidate_depth)
 from volcano_tpu_torch.ops.dyn_cases import (PLACER_WEIGHTS, SHARD_CASES,
-                                             make_dyn_inputs,
-                                             make_shard_inputs)
+                                             WAVE_CASES, make_dyn_inputs,
+                                             make_shard_inputs,
+                                             make_wave_inputs)
+from volcano_tpu_torch.ops.round_placer import NEG
 
 
 # ---- kernel 1: the cluster's slices and shared memory ----------------------
@@ -246,3 +254,238 @@ def test_plain_route_carries_combine(case, D, gpu):
     for a, b in zip(got[4:], sp.combine(want, N)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert got.best_found.dtype == torch.bool
+
+
+# ---- kernel 5: the split-row grid, its partials' merge and the combine -----
+
+@pytest.mark.parametrize("D,NL,W,want", [
+    # check I: one shard of 10,240 rows, 8 columns: 320 blocks, not 8
+    (1, 10240, 8, (40, 8, 1)),
+    (4, 2560, 8, (10, 8, 4)),
+    (4, 300, 16, (2, 16, 4)),
+    (2, 48, 4, (1, 4, 2)),
+    (1, 1, 1, (1, 1, 1))])
+def test_wave_grid_shape(D, NL, W, want):
+    assert sw.grid_shape(D, NL, W) == want
+    assert sw.THREADS == sp.grid_geometry()[1] == 256
+
+
+def test_wave_output_buffer_layout():
+    """One buffer holds the nine fields of WaveCandidates in their order,
+    each right after the one before it at a multiple of 4 bytes (the found
+    flags a byte each); a block's partial is 36 words; the launcher's
+    pointer array holds the node-axis inputs and the scratch."""
+    D, W, C = 4, 16, 8
+    layout, nbytes = sw.output_layout(D, W, C)
+    want = [(torch.float32, (2, D * C, W)), (torch.int32, (2, D * C, W)),
+            (torch.int32, (2, D, W)), (torch.int32, (2, D, W)),
+            (torch.int32, (2, W, C)), (torch.float32, (2, W, C)),
+            (torch.bool, (2, W, C)), (torch.int32, (2, W)),
+            (torch.int32, (2, W))]
+    assert [(dt, shape) for dt, shape, _ in layout] == want
+    at = 0
+    for dt, shape, off in layout:
+        assert off == at and off % 4 == 0
+        at += -(-math.prod(shape) * dt.itemsize // 4) * 4
+    assert nbytes == at
+    assert sw.output_layout(1, 1, 1)[1] == 8 * 8 + 4
+    assert sw.PART_BYTES == 4 * (2 * 2 * sw.MAX_C + 4) == 144
+    assert sw.N_PTRS == len(sw.WaveArgs._fields) - 2 + 2
+    assert sw.NODE_ARGS == sw.WaveArgs._fields[2:]
+    assert sw.FIELD_DTYPES == tuple(dt for dt, _ in want)
+
+
+@pytest.mark.parametrize("gpu", [False, True])
+def test_wave_launch_pointers_follow_the_launcher_slots(gpu):
+    """The launcher's pointer array holds the node-axis fields in
+    WaveArgs's order, a null pointer for each GPU entry the arguments do
+    not carry, then the scratch; its length is N_PTRS."""
+    cfg = AllocateConfig(enable_gpu=gpu, **PLACER_WEIGHTS)
+    t = [torch.from_numpy(x) for x in make_wave_inputs(0, D=2, W=4,
+                                                       gpu=gpu)]
+    a = sw.unpack_args(cfg, t)
+    part, ticket = torch.zeros(4), torch.zeros(2)
+    got = sw.launch_pointers(a, part, ticket)
+    assert len(got) == sw.N_PTRS
+    want = [getattr(a, f) for f in sw.NODE_ARGS]
+    assert [x is None for x in want] == [
+        not gpu and f in ("gidle0", "gpux") for f in sw.NODE_ARGS]
+    assert list(got) == [x.data_ptr() if x is not None else None
+                         for x in want] + [part.data_ptr(),
+                                           ticket.data_ptr()]
+    assert [p for p in got[:-2] if p is not None] == [
+        x.data_ptr() for x in t[2:]]
+
+
+@pytest.mark.parametrize("D,W,C", [(1, 8, 8), (4, 16, 8), (2, 3, 3)])
+def test_wave_output_layout_views_the_buffer(D, W, C):
+    """The wrapper's views of the buffer cover it without overlap, in the
+    order, dtype and shape of WaveCandidates's fields."""
+    layout, nbytes = sw.output_layout(D, W, C)
+    buf = torch.zeros(nbytes, dtype=torch.uint8)
+    got = [buf.view(dt).as_strided(
+        shape, [math.prod(shape[i + 1:]) for i in range(len(shape))],
+        at // dt.itemsize) for dt, shape, at in layout]
+    for k, g in enumerate(got):
+        g.view(torch.uint8).fill_(k + 1)
+    used = buf[buf > 0]
+    assert used.numel() == sum(g.numel() * g.element_size() for g in got)
+    for k, (g, (dt, shape, at)) in enumerate(zip(got, layout)):
+        assert g.dtype == dt and g.shape == shape and g.is_contiguous()
+        assert g.data_ptr() == buf.data_ptr() + at
+        assert bool((g.view(torch.uint8) == k + 1).all())
+    assert [f.dtype for f in got[4:]] == [torch.int32, torch.float32,
+                                          torch.bool, torch.int32,
+                                          torch.int32]
+
+
+def ordered(score, rows, ok):
+    """Positions of the entries ``ok`` of 1-D ``score`` / ``rows`` in the
+    kernel's order (score desc, then row asc), then the rest."""
+    by_row = torch.sort(torch.where(ok, rows, torch.iinfo(torch.int32).max),
+                        stable=True).indices
+    key = torch.where(ok, score, float("-inf"))[by_row]
+    return by_row[torch.sort(key, descending=True, stable=True).indices]
+
+
+def block_partials(score, feas, off, ROWS, C):
+    """Each block of ROWS rows of one shard's column (the last one short):
+    its top C entries (score, global row) by the kernel's order, its
+    feasible count and the raw ties at its best, as its last warp writes
+    them."""
+    parts = []
+    for lo in range(0, score.shape[0], ROWS):
+        s, f = score[lo:lo + ROWS], feas[lo:lo + ROWS]
+        rows = torch.arange(lo, lo + s.shape[0], dtype=torch.int32) + off
+        n = int(f.sum())
+        top = ordered(s, rows, f)[:min(C, n)]
+        best = s[top[0]] if n else None
+        ties = int((f & (s == best)).sum()) if n else 0
+        parts.append((s[top], rows[top], n, ties))
+    return parts
+
+
+def merge_lists(lists, C):
+    """Lists (score, row, count, ties) merged into one as a merge step of
+    the kernel does: the first C of all entries in the kernel's order, the
+    counts summed, and the ties summed over the lists whose best is the
+    merged best."""
+    s = torch.cat([p[0] for p in lists])
+    r = torch.cat([p[1] for p in lists])
+    cnt = sum(p[2] for p in lists)
+    top = ordered(s, r, torch.ones_like(r, dtype=torch.bool))[:min(C, cnt)]
+    best = s[top[0]] if cnt else None
+    ties = sum(p[3] for p in lists if p[2] and p[0][0] == best)
+    return s[top], r[top], cnt, ties
+
+
+def merge_tree(lists, C, group=8):
+    """The last block's tree: groups of ``group`` lists merged, level by
+    level, until one list is left."""
+    while True:
+        lists = [merge_lists(lists[g:g + group], C)
+                 for g in range(0, len(lists), group)]
+        if len(lists) == 1:
+            return lists[0]
+
+
+def padded(lst, C, sentinel):
+    """A list's C entries as the kernel writes them: NEG and ``sentinel``
+    past its count."""
+    s, r, cnt, ties = lst
+    sc = torch.full((C,), NEG, dtype=torch.float32)
+    ix = torch.full((C,), sentinel, dtype=torch.int32)
+    sc[:s.shape[0]], ix[:s.shape[0]] = s, r
+    return sc, ix, cnt, ties
+
+
+def split_row_model(cfg, D, C, args, ROWS, group=8):
+    """The kernel's lists from its blocks' partials: rows evaluated as the
+    plain version evaluates them (``shard_placer.shard_scores`` a
+    column), cut into blocks of ROWS, merged shard by shard in the last
+    block's tree of groups of ``group``, and the shards' lists merged the
+    same way; in the kernel's output layout."""
+    a = sw.unpack_args(cfg, args)
+    N, W = a.idle.shape[1], a.req.shape[1]
+    NL = N // D
+    score = torch.empty((2, D * C, W), dtype=torch.float32)
+    idx = torch.empty((2, D * C, W), dtype=torch.int32)
+    count = torch.empty((2, D, W), dtype=torch.int32)
+    ties = torch.empty((2, D, W), dtype=torch.int32)
+    e_idx = torch.empty((2, W, C), dtype=torch.int32)
+    e_score = torch.empty((2, W, C), dtype=torch.float32)
+    e_found = torch.empty((2, W, C), dtype=torch.bool)
+    e_count = torch.empty((2, W), dtype=torch.int32)
+    e_ties = torch.empty((2, W), dtype=torch.int32)
+    shards = [sw.wave_args_of(cfg, D, a, d) for d in range(D)]
+    for w in range(W):
+        for v in range(2):
+            lists = []
+            for d, shard in enumerate(shards):
+                sc, fn, ff, _, _ = sp.shard_scores(
+                    cfg, NL, sw.column_args(cfg, shard, w))
+                feas = (fn, ff)[v]
+                parts = block_partials(sc[0], feas[0], d * NL, ROWS, C)
+                lists.append(merge_tree(parts, C, group))
+                s, i, n, t = padded(lists[-1], C, (d + 1) * NL)
+                score[v, d * C:(d + 1) * C, w] = s
+                idx[v, d * C:(d + 1) * C, w] = i
+                count[v, d, w], ties[v, d, w] = n, t
+            comb = merge_tree(lists, C, group)
+            s, i, n, t = padded(comb, C, N)
+            e_score[v, w], e_idx[v, w] = s, i
+            e_found[v, w] = torch.arange(C) < comb[0].shape[0]
+            e_count[v, w], e_ties[v, w] = n, t
+    return sw.WaveCandidates(score, idx, count, ties, e_idx, e_score,
+                             e_found, e_count, e_ties)
+
+
+def same(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W", [1, 4, 8, 16])
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(WAVE_CASES))
+def test_split_row_merge_model_is_the_plain_version(case, D, W):
+    """Shards of 300 rows at 128, 256 and 512 rows a block (3 blocks with a
+    short last one, 2, and one longer than the shard): the blocks' partial
+    top-C lists merged in the last block's tree (groups of 8; of 2 too, so
+    that the tree has several levels) give the plain version's lists, and
+    the shards' lists merged the same way give ``combine`` of them,
+    bitwise; W = 16 columns hold more slots than the depth C = 8, and the
+    ties case repeats four rows across the blocks."""
+    cfg = AllocateConfig(enable_gpu=True, **PLACER_WEIGHTS)
+    C = wave_candidate_depth(W)
+    t = [torch.from_numpy(x) for x in make_wave_inputs(
+        2, D=D, W=W, NL=300, gpu=True, **WAVE_CASES[case])]
+    N = t[-1].shape[1]
+    want = sw.shard_wave_plain_all(cfg, D, C, t)
+    combined = sw.combine(want, C, N)
+    for ROWS, group in ((128, 8), (256, 8), (512, 8), (128, 2)):
+        got = split_row_model(cfg, D, C, t, ROWS, group)
+        assert all(same(g, w) for g, w in zip(got[:4], want[:4])), ROWS
+        assert all(same(g, w) for g, w in zip(got[4:], combined)), ROWS
+
+
+@pytest.mark.parametrize("gpu", [False, True])
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(WAVE_CASES))
+def test_wave_plain_route_carries_combine(case, D, gpu):
+    """The wrapper's plain route returns the per-shard lists of the plain
+    version and, beside them, ``combine`` of those lists: what the wave
+    walk reads."""
+    cfg = AllocateConfig(enable_gpu=gpu, **PLACER_WEIGHTS)
+    W, C = 8, 8
+    t = [torch.from_numpy(x) for x in
+         make_wave_inputs(0, D=D, W=W, gpu=gpu, **WAVE_CASES[case])]
+    N = t[-1].shape[1]
+    got = sw.shard_wave(cfg, D, C, t)
+    want = sw.shard_wave_plain_all(cfg, D, C, t)
+    assert all(same(g, w) for g, w in zip(got[:4], want[:4]))
+    assert want.e_idx is None and sw.COMBINED == got._fields[4:]
+    assert all(same(g, w) for g, w in zip(got[4:], sw.combine(want, C, N)))
+    assert got.e_found.dtype == torch.bool
+    assert got.e_idx.shape == (2, W, C) and got.e_count.shape == (2, W)

@@ -68,6 +68,62 @@ def test_matches_jax_segment_sum_where_exact(seed):
     np.testing.assert_array_equal(bits(got.numpy()), bits(want))
 
 
+def nonzero_fold(vals, seg, num):
+    """The kernel's fold: for each (segment, dim) pair, from +0, one float32
+    add after another in row order over the pair's terms that are not an
+    exact zero (+0.0 or -0.0); NaN and infinities are terms."""
+    out = np.zeros((num, vals.shape[1]), F32)
+    for s in range(num):
+        for d in range(vals.shape[1]):
+            acc = F32(0.0)
+            for a in np.flatnonzero(seg == s):
+                if vals[a, d] != 0.0:
+                    acc = F32(acc + vals[a, d])
+            out[s, d] = acc
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fold_of_nonzero_terms_is_the_sequential_fold(seed):
+    """Skipping exact zeros gives the sequential fold's bits, with -0.0,
+    NaN and infinities planted, a segment of -0.0 terms only, rows in
+    segments outside [0, num) and empty segments; and so does the plain
+    version."""
+    A, D, num = 400, 3, 7
+    vals, seg = inputs(seed, A, D, num)
+    rng = np.random.RandomState(seed + 100)
+    pick = rng.rand(A, D)
+    vals[pick < 0.2] = 0.0
+    vals[(pick >= 0.2) & (pick < 0.35)] = -0.0
+    vals[(pick >= 0.35) & (pick < 0.37)] = np.inf
+    vals[(pick >= 0.37) & (pick < 0.39)] = -np.inf
+    vals[(pick >= 0.39) & (pick < 0.40)] = np.nan
+    seg = rng.randint(-3, num + 3, A).astype(np.int32)
+    seg[seg == 2] = -1                      # segment 2 stays empty
+    seg[:5], vals[:5, 0] = 5, -0.0
+    seg[seg == 5] = np.where(rng.rand(int((seg == 5).sum())) < 0.5, 5, 6)
+    vals[seg == 5, 0] = -0.0               # (5, 0): -0.0 terms only
+    with np.errstate(invalid="ignore"):     # inf - inf is a NaN term
+        want = loop_fold(vals, seg, num)
+        got = nonzero_fold(vals, seg, num)
+    same_bits_or_nan(got, want)
+    assert np.isnan(want).any() and np.isinf(want).any()
+    assert (bits(want[2]) == 0).all() and bits(want[5, 0]) == 0
+    plain = sf.seg_fold_plain(torch.from_numpy(vals), torch.from_numpy(seg),
+                              num).numpy()
+    same_bits_or_nan(plain, want)
+
+
+def same_bits_or_nan(got, want):
+    """Equal float32 bits, and a NaN exactly where the other has one: IEEE
+    754 leaves a NaN result's sign and payload to the implementation (the
+    CPU's vector and scalar adds pick different operands' NaNs), so they
+    say nothing of the order of the adds."""
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(bits(got)[~nan], bits(want)[~nan])
+
+
 def test_empty_inputs():
     got = sf.seg_fold(torch.zeros((0, 2)), torch.zeros(0, dtype=torch.int32),
                       3)
@@ -99,6 +155,22 @@ def test_wrapper_checks_dtypes_and_shapes():
         sf.seg_fold(torch.from_numpy(vals).double(), torch.from_numpy(seg), 3)
     with pytest.raises(ValueError, match="seg"):
         sf.seg_fold(torch.from_numpy(vals), torch.from_numpy(seg[:5]), 3)
+
+
+def test_kernel_wrapper_names_its_limits():
+    """The kernel's wrapper refuses, before any launch, more dims than a
+    tile of its shared memory holds (MAX_DIMS, 42) and 2**31 or more
+    (segment, dim) pairs, naming the limit; the plain version has
+    neither."""
+    seg = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 42 dims"):
+        sf.seg_fold_cuda(torch.ones(4, sf.MAX_DIMS + 1), seg, 3)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        sf.seg_fold_cuda(torch.ones(4, 2), seg, 2 ** 30)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sf.seg_fold_cuda(torch.ones(4, sf.MAX_DIMS), seg, 3)
+    got = sf.seg_fold(torch.ones(4, sf.MAX_DIMS + 1), seg, 3)
+    assert got.shape == (3, 43) and bool((got[0] == 4.0).all())
 
 
 @pytest.mark.parametrize("seed", [0, 1])

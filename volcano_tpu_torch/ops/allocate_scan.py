@@ -512,10 +512,11 @@ def _sharded_pops(cfg, D, place_shard, place_wave, snap, extras, node_env,
             args = [req_w, task_w] + shard_env + [idle, pipe, pods]
             if cfg.enable_gpu:
                 args.append(gpux)
+            # the shards' lists combined: by the kernel's last blocks on
+            # the card, by sw.combine on the plain route
             with _step("wave_sweep"):
                 cands = place_wave(cfg, D, C, args)
-            with _step("wave_combine"):
-                e_i, e_v, e_o, cnt, _ = sw.combine(cands, C, N)
+            e_i, e_v, e_o, cnt = cands[4:8]
             sw.waves += 1
 
             # ---- the optimistic batched commit (:2131-2215): every
@@ -797,8 +798,9 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
     ``wave_placer`` the wide one (``shard_wave.shard_wave``), each with the
     same signature and outputs (a ``shard_placer`` returns the shards'
     combined triple too: ``shard_placer.shard_candidates_plain_combined``
-    is its plain version); callers use them to run the plain versions on
-    the card or to watch the launches.
+    is its plain version; a ``wave_placer`` the shards' lists combined:
+    ``shard_wave.shard_wave_plain_combined``); callers use them to run the
+    plain versions on the card or to watch the launches.
 
     ``mesh`` (``parallel.sharding.NodeMesh``): the node axis split into
     ``mesh.size`` shards. The cycle then takes the reference's sharded scan
@@ -810,8 +812,9 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
     reference combines them), and the commit, the gang finalize and the queue and drf
     accounting in tensor code. With ``wave_width`` W > 1 the slots of a pop
     go in waves of W instead, each wave one launch of the wide candidate
-    kernel (the reference's wavefront section walk, :2096-2437), with the
-    same decisions. The batching fields are ignored there, as the
+    kernel, whose last blocks also combine the shards' lists (the
+    reference's wavefront section walk, :2096-2437), with the same
+    decisions. The batching fields are ignored there, as the
     reference ignores them off its fused placers.
 
     Without a mesh the fused placers take whole job sections and ignore

@@ -10,9 +10,10 @@ inside ``csrc/dyn_placer.cu`` agree bit for bit at any size, and agree with
 the reference wherever the sums are exact.
 
 - :func:`seg_fold_cuda` launches the hand-written kernel
-  (``csrc/seg_fold.cu``) on the current stream, for tensors on a CUDA
-  device; it never synchronises, so a cycle that calls it once a round
-  keeps its one readback a round;
+  (``csrc/seg_fold.cu``: a warp a (segment, dim) pair lists the pair's
+  nonzero terms in row order and folds only those) on the current stream,
+  for tensors on a CUDA device; it never synchronises, so a cycle that
+  calls it once a round keeps its one readback a round;
 - :func:`seg_fold_plain` is the plain PyTorch version: ``index_add_`` on
   the CPU, which adds the source rows one after another in index order;
 - :func:`seg_fold` chooses by the device of ``vals``.
@@ -24,8 +25,13 @@ import ctypes
 
 import torch
 
+from ._build import stream_handle
+
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
+#: the most dims the kernel takes (csrc/seg_fold.cu MAX_D: a tile of 256
+#: rows of that many dims still fits its shared memory)
+MAX_DIMS = 42
 
 
 def _check(vals: torch.Tensor, seg: torch.Tensor, num: int):
@@ -54,38 +60,55 @@ def seg_fold_plain(vals: torch.Tensor, seg: torch.Tensor,
     return out[:num].to(vals.device)
 
 
-_lib = None
+_launch = None
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library_launch():
+    """The C launcher, built and bound on first use. Bound as a Python-API
+    function: the call keeps the interpreter lock, which a launch of a few
+    microseconds does not need to give up."""
+    global _launch
+    if _launch is None:
         from ._build import load
-        lib = load("seg_fold")
-        fn = lib.seg_fold_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        _lib = lib
-    return _lib
+        c = ctypes
+        proto = c.PYFUNCTYPE(c.c_int, c.c_void_p, c.c_void_p, c.c_int,
+                             c.c_int, c.c_int, c.c_void_p, c.c_void_p)
+        _launch = proto(("seg_fold_launch", load("seg_fold")))
+    return _launch
 
 
 def seg_fold_cuda(vals: torch.Tensor, seg: torch.Tensor,
                   num: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronisation)."""
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+    The host path is one test of what the kernel takes, the output's
+    allocation and the call; other inputs go through :func:`_check` (a
+    non-contiguous one is copied). Takes at most :data:`MAX_DIMS` dims
+    and num x D < 2**31 (segment, dim) pairs."""
     global launches
-    _check(vals, seg, num)
-    if not vals.is_cuda:
-        raise ValueError(f"the kernel takes tensors on a CUDA device, not "
-                         f"{vals.device}")
-    vals, seg = vals.contiguous(), seg.contiguous()
+    dev = vals.get_device()
+    if not (dev >= 0 and vals.dtype is torch.float32
+            and seg.dtype is torch.int32 and vals.dim() == 2
+            and seg.dim() == 1 and seg.shape[0] == vals.shape[0]
+            and seg.get_device() == dev and 0 <= num
+            and vals.shape[1] <= MAX_DIMS
+            and num * vals.shape[1] < 2 ** 31
+            and vals.is_contiguous() and seg.is_contiguous()):
+        _check(vals, seg, num)
+        if vals.shape[1] > MAX_DIMS:
+            raise ValueError(f"the kernel takes at most {MAX_DIMS} dims, "
+                             f"got {vals.shape[1]}")
+        if num * vals.shape[1] >= 2 ** 31:
+            raise ValueError(f"the kernel takes fewer than 2**31 (segment, "
+                             f"dim) pairs, got {num} x {vals.shape[1]}")
+        if dev < 0:
+            raise ValueError(f"the kernel takes tensors on a CUDA device, "
+                             f"not {vals.device}")
+        vals, seg = vals.contiguous(), seg.contiguous()
     A, D = vals.shape
-    out = torch.empty((num, D), dtype=torch.float32, device=vals.device)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    rc = _library().seg_fold_launch(
-        ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(seg.data_ptr()),
-        A, D, num, ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    out = vals.new_empty((num, D))
+    rc = (_launch or _library_launch())(
+        vals.data_ptr(), seg.data_ptr(), A, D, num, out.data_ptr(),
+        stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"seg_fold launch failed: CUDA error {rc}")
     launches += 1

@@ -22,9 +22,13 @@ Functions:
   ``_shard_wave_kernel``; its feasibility and score are
   ``shard_placer.shard_scores``, kernel 4's, column by column;
 - :func:`shard_wave_cuda`: one launch of the hand-written CUDA kernel
-  (``csrc/shard_wave.cu``) over all D shards and W columns of a device;
+  (``csrc/shard_wave.cu``) over all D shards and W columns of a device, a
+  grid of split-row blocks whose last block of each column merges the
+  blocks' lists and combines the shards, so the combined lists come out
+  of the same launch;
 - :func:`shard_wave`: the wrapper the cycle calls: the kernel for CUDA
-  tensors, the plain version shard by shard for CPU tensors;
+  tensors, the plain version shard by shard and :func:`combine`
+  (:func:`shard_wave_plain_combined`) for CPU tensors;
 - :func:`combine`: the D shards' lists -> the global top C per column
   (``_wave_combine``);
 - :func:`row_maps`, :func:`gather_rows` and :func:`rescore`: feasibility
@@ -51,11 +55,14 @@ slots once and slices a wave's window out of them.
 from __future__ import annotations
 
 import ctypes
+import math
+import operator
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import shard_placer as sp
+from ._build import stream_handle
 from .round_placer import MAX_R, NEG, _weights, check_layout
 
 #: launches of the CUDA kernel since the count was last set to 0 (one per
@@ -99,11 +106,22 @@ class WaveArgs(NamedTuple):
 
 class WaveCandidates(NamedTuple):
     """Per-shard lists, leading axis the view (0 "now", 1 "future"); shard
-    d's C entries are rows d * C .. d * C + C - 1 of ``score`` and ``idx``."""
+    d's C entries are rows d * C .. d * C + C - 1 of ``score`` and ``idx``.
+    Then the D shards' lists combined (:func:`combine`'s five outputs, in
+    its order), None where not computed."""
     score: torch.Tensor   # f32[2, D * C, W]
     idx: torch.Tensor     # i32[2, D * C, W] global rows
     count: torch.Tensor   # i32[2, D, W] feasible rows
     ties: torch.Tensor    # i32[2, D, W] raw count at the shard's best
+    e_idx: Optional[torch.Tensor] = None     # i32[2, W, C] rows, N past
+    e_score: Optional[torch.Tensor] = None   # f32[2, W, C] NEG past
+    e_found: Optional[torch.Tensor] = None   # bool[2, W, C]
+    e_count: Optional[torch.Tensor] = None   # i32[2, W] summed
+    e_ties: Optional[torch.Tensor] = None    # i32[2, W] raw, at the best
+
+
+#: the combined fields of :class:`WaveCandidates`
+COMBINED = WaveCandidates._fields[4:]
 
 
 def unpack_args(cfg, args) -> WaveArgs:
@@ -156,24 +174,27 @@ def shard_wave_plain(cfg, NL: int, R: int, G: int, GR: int, W: int, C: int,
     feasible counts and (1, W) raw ties of the now view, then of the
     future view. (R, G and GR are the reference's static shape arguments;
     the tensors carry them.)"""
-    gpu = bool(cfg.enable_gpu)
-    rr_all = args[0]
-    gq_all = args[1] if gpu else None
-    rows = args[1 + gpu:8 + gpu]
-    off = args[8 + gpu]
-    rest = list(args[9 + gpu:])
-    big_i = off + NL            # sentinel past this shard's rows
+    big_i = args[8 + bool(cfg.enable_gpu)] + NL   # past this shard's rows
     outs = [[] for _ in range(8)]
     for w in range(W):
-        col = [rr_all[:, w:w + 1]]
-        if gpu:
-            col.append(gq_all[:, w:w + 1])
-        col += [r[:, w:w + 1] for r in rows] + [off] + rest
-        score, feas_now, feas_fut, iota_n, _ = sp.shard_scores(cfg, NL, col)
+        score, feas_now, feas_fut, iota_n, _ = sp.shard_scores(
+            cfg, NL, column_args(cfg, args, w))
         for v, feas in enumerate((feas_now, feas_fut)):
             for k, o in enumerate(_topc(score, feas, iota_n, big_i, C)):
                 outs[4 * v + k].append(o)
     return tuple(torch.cat(o, 1) for o in outs)
+
+
+def column_args(cfg, args, w: int):
+    """Column w of one shard's arguments (the reference's order, as
+    :func:`shard_wave_plain` takes them): the argument list of kernel 4's
+    plain version for that column's task (``shard_placer.shard_scores``)."""
+    gpu = bool(cfg.enable_gpu)
+    col = [args[0][:, w:w + 1]]
+    if gpu:
+        col.append(args[1][:, w:w + 1])
+    return col + [r[:, w:w + 1] for r in args[1 + gpu:8 + gpu]] + list(
+        args[8 + gpu:])
 
 
 def wave_args_of(cfg, D: int, a: WaveArgs, d: int):
@@ -218,27 +239,88 @@ def shard_wave_plain_all(cfg, D: int, C: int, args) -> WaveCandidates:
 # the CUDA kernel
 # --------------------------------------------------------------------------
 
-_lib = None
+_launch = None
+#: the C launcher's argument types: node-axis pointers and scratch, dims,
+#: the output fields' byte offsets, weights, req, task, output buffer,
+#: stream
+_ARGTYPES = [ctypes.c_void_p] * 8
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def bind(lib):
+    """The C launcher of kernel 5 in the built library ``lib``. Bound as a
+    Python-API function: the call keeps the interpreter lock, which a
+    launch of a few microseconds does not need to give up."""
+    return ctypes.PYFUNCTYPE(ctypes.c_int, *_ARGTYPES)(
+        ("shard_wave_launch", lib))
+
+
+def _library_launch():
+    """The C launcher of kernel 5, built and bound on first use."""
+    global _launch
+    if _launch is None:
         from ._build import load
-        lib = load("shard_wave")
-        fn = lib.shard_wave_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4
-        _lib = lib
-    return _lib
+        _launch = bind(load("shard_wave"))
+    return _launch
 
 
-#: outputs of the C launcher, after the inputs: scores f32[2, D * C, W],
-#: rows i32[2, D * C, W], counts and raw ties i32[2, D, W]
-N_OUTS = 4
-N_PTRS = len(WaveArgs._fields) + N_OUTS
-#: order of the integer dimensions of the C launcher
-DIMS = ("D", "NL", "R", "G", "W", "C")
+#: the node-axis fields of :class:`WaveArgs` (after req and task), whose
+#: pointers a launch plan keeps, in the C launcher's order
+NODE_ARGS = WaveArgs._fields[2:]
+#: the C launcher's pointer array: the node-axis inputs, then the scratch
+#: (the blocks' partials and the column counters)
+N_PTRS = len(NODE_ARGS) + 2
+#: order of the integer dimensions of the C launcher: then the block count
+#: of a shard's column and the partials' scratch bytes, which it checks
+DIMS = ("D", "NL", "R", "G", "W", "C", "B", "part_bytes")
+#: threads a block, a row each (csrc/shard_wave.cu WB: kernel 4's default
+#: block, ``shard_placer.grid_geometry()``; the launcher refuses a block
+#: count other than its own)
+THREADS = 256
+#: bytes of one block's partial (csrc/shard_wave.cu Part): per view C
+#: scores and rows, the count and the ties (the launcher refuses a scratch
+#: smaller than its own count)
+PART_BYTES = 4 * (2 * 2 * MAX_C + 4)
+#: the dtype of each field of :class:`WaveCandidates`
+FIELD_DTYPES = (torch.float32, torch.int32, torch.int32, torch.int32,
+                torch.int32, torch.float32, torch.bool, torch.int32,
+                torch.int32)
+
+
+def grid_shape(D: int, NL: int, W: int):
+    """The kernel's grid (B, W, D): B = ceil(NL / THREADS) blocks of a
+    shard's rows for each column and shard."""
+    return sp.row_blocks(NL, THREADS), W, D
+
+
+def output_layout(D: int, W: int, C: int):
+    """The kernel's one output buffer: each field of
+    :class:`WaveCandidates` in its order, as (dtype, shape, byte offset),
+    each at a multiple of 4 bytes; and the buffer's bytes. The only copy
+    of the layout: the C launcher takes the offsets."""
+    shapes = ((2, D * C, W), (2, D * C, W), (2, D, W), (2, D, W),
+              (2, W, C), (2, W, C), (2, W, C), (2, W), (2, W))
+    at, layout = 0, []
+    for dt, shape in zip(FIELD_DTYPES, shapes):
+        layout.append((dt, shape, at))
+        at += -(-math.prod(shape) * dt.itemsize // 4) * 4
+    return tuple(layout), at
+
+
+#: per (device, stream): the column counters (int32, 0 between launches:
+#: each column's last block puts its counter back) and the partials'
+#: scratch
+_work: dict = {}
+
+
+def _workspace(key, dev, W: int, n_parts: int):
+    ticket, part = _work.get(key, (None, None))
+    if ticket is None or ticket.numel() < W:
+        ticket = torch.zeros(max(W, 16), dtype=torch.int32, device=dev)
+    if part is None or part.numel() * 4 < n_parts * PART_BYTES:
+        part = torch.empty(n_parts * PART_BYTES // 4, dtype=torch.int32,
+                           device=dev)
+    _work[key] = (ticket, part)
+    return ticket, part
 
 
 def _check(cfg, D: int, C: int, a: WaveArgs):
@@ -258,51 +340,150 @@ def _check(cfg, D: int, C: int, a: WaveArgs):
         **sp.node_layout(cfg, a)), a)
 
 
+def _node_ptrs(args):
+    """The data pointers of the node-axis entries of a flat argument list,
+    for :meth:`_Plan.takes`."""
+    return tuple(t.data_ptr() for t in args[2:])
+
+
+def launch_pointers(a: WaveArgs, part: torch.Tensor, ticket: torch.Tensor):
+    """The C launcher's pointer array (csrc/shard_wave.cu Ptr): each field
+    of :data:`NODE_ARGS` (None for the GPU entries without GPU cards),
+    then the partials' scratch and the column counters."""
+    return tuple(getattr(a, f).data_ptr() if getattr(a, f) is not None
+                 else None for f in NODE_ARGS) + (part.data_ptr(),
+                                                  ticket.data_ptr())
+
+
+class _Plan:
+    """What the launches on one set of node-axis arguments share, on one
+    stream: the checked arguments, the pointer array of the node tensors
+    and the scratch, the dimensions, the output layout, the weights. The
+    wave walk launches on the same node tensors (its state is updated in
+    place, never resized) for a whole pop, so a wave tests only its
+    request and task columns, the node tensors' identity and data
+    pointers, and the stream. Nothing of the plan changes after it is
+    built: a launch passes its own request, task and output buffer."""
+
+    __slots__ = ("cfg", "D", "C", "a", "node", "node_ptrs", "stream",
+                 "req_shape", "task_shape", "device", "index", "ptrs",
+                 "dims", "at", "weights", "addr", "dims_d", "nbytes",
+                 "views", "W")
+
+    def __init__(self, cfg, D, C, args, stream):
+        a = unpack_args(cfg, args)
+        if not a.idle.is_cuda:
+            raise ValueError(f"the kernel takes tensors on a CUDA device, "
+                             f"not {a.idle.device}")
+        _check(cfg, D, C, a)
+        R, N = a.idle.shape
+        if not 1 <= R <= MAX_R:
+            raise ValueError(f"the kernel takes 1..{MAX_R} resource dims, "
+                             f"got {R}")
+        W = a.req.shape[1]
+        G = a.gidle0.shape[0] if cfg.enable_gpu else 0
+        NL = N // D
+        B, _, _ = grid_shape(D, NL, W)
+        dev = a.idle.device
+        ticket, part = _workspace((a.idle.get_device(), stream), dev, W,
+                                  B * W * D)
+        self.cfg, self.D, self.C, self.a = cfg, D, C, a
+        self.node = tuple(args[2:])
+        self.node_ptrs = _node_ptrs(args)
+        self.stream = stream
+        self.req_shape, self.task_shape = a.req.shape, a.task.shape
+        self.device, self.index, self.W = dev, a.idle.get_device(), W
+        self.ptrs = (ctypes.c_void_p * N_PTRS)(*launch_pointers(a, part,
+                                                                ticket))
+        self.dims_d = dict(D=D, NL=NL, R=R, G=G, W=W, C=C, B=B,
+                           part_bytes=part.numel() * 4)
+        self.dims = (ctypes.c_int * len(DIMS))(*[self.dims_d[k]
+                                                 for k in DIMS])
+        layout, self.nbytes = output_layout(D, W, C)
+        self.at = (ctypes.c_int * len(layout))(*[at for _, _, at in layout])
+        # each field as (dtype, shape, strides, offset in its dtype)
+        self.views = tuple(
+            (dt, shape, tuple(math.prod(shape[i + 1:])
+                              for i in range(len(shape))),
+             at // dt.itemsize) for dt, shape, at in layout)
+        self.weights = (ctypes.c_float * 4)(*_weights(cfg))
+        self.addr = (ctypes.addressof(self.ptrs), ctypes.addressof(self.dims),
+                     ctypes.addressof(self.at),
+                     ctypes.addressof(self.weights))
+
+    def takes(self, cfg, D, C, args, stream) -> bool:
+        """Whether a launch on ``args`` on ``stream`` can reuse this plan:
+        the same config, shards, depth and stream, the same node tensors
+        at the same addresses, and request and task columns of the
+        planned shapes on the device."""
+        req, task = args[0], args[1]
+        return (cfg is self.cfg and D == self.D and C == self.C
+                and stream == self.stream
+                and len(args) == len(self.node) + 2
+                and all(map(operator.is_, args[2:], self.node))
+                and _node_ptrs(args) == self.node_ptrs
+                and req.dtype is torch.float32 and task.dtype is torch.int32
+                and req.shape == self.req_shape
+                and task.shape == self.task_shape
+                and req.get_device() == self.index
+                and task.get_device() == self.index
+                and req.is_contiguous() and task.is_contiguous())
+
+
+_plan: Optional[_Plan] = None
+
+
 def shard_wave_cuda(cfg, D: int, C: int, args) -> WaveCandidates:
     """Launch the CUDA kernel over the D shards and W columns on the current
-    stream (no synchronisation)."""
-    global launches
-    a = unpack_args(cfg, args)
-    if not a.idle.is_cuda:
-        raise ValueError(f"the kernel takes tensors on a CUDA device, not "
-                         f"{a.idle.device}")
-    _check(cfg, D, C, a)
-    R, N = a.idle.shape
-    if not 1 <= R <= MAX_R:
-        raise ValueError(f"the kernel takes 1..{MAX_R} resource dims, got {R}")
-    W = a.req.shape[1]
-    G = a.gidle0.shape[0] if cfg.enable_gpu else 0
-    dev = a.idle.device
-    score = torch.empty((2, D * C, W), dtype=torch.float32, device=dev)
-    idx = torch.empty((2, D * C, W), dtype=torch.int32, device=dev)
-    count = torch.empty((2, D, W), dtype=torch.int32, device=dev)
-    ties = torch.empty((2, D, W), dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * N_PTRS)(*[
-        t.data_ptr() if t is not None else None
-        for t in list(a) + [score, idx, count, ties]])
-    dims = dict(D=D, NL=N // D, R=R, G=G, W=W, C=C)
-    sp.note_kernel_launch("shard_wave", a, dims, per_shard=W)
-    ints_c = (ctypes.c_int * len(DIMS))(*[dims[k] for k in DIMS])
-    weights = (ctypes.c_float * 4)(*_weights(cfg))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().shard_wave_launch(ptrs, ints_c, weights,
-                                      ctypes.c_void_p(stream))
+    stream (no synchronisation): the per-shard lists and their combined
+    top C. The launch plan is checked and built once for a run of
+    launches on the same node tensors and stream (:class:`_Plan`); the
+    scratch is kept per device and stream, so launches on one stream run
+    in turn and launches on two streams do not share it.
+
+    Limits: R <= 8 resource dims, C <= 8; the last block keeps
+    2 D (ceil(B / 8) + ceil(B / 64)) lists of 72 bytes in shared memory
+    (B = ceil(N / D / 256)), past the card's limit for one block (227 KB
+    on the H100: about 2.9 M rows in one shard, or 800 shards of at
+    most 2,048 rows) the launch fails."""
+    global launches, _plan
+    index = args[0].get_device()
+    stream = stream_handle(index) if index >= 0 else None
+    p = _plan
+    if p is None or not p.takes(cfg, D, C, args, stream):
+        p = _plan = _Plan(cfg, D, C, args, stream)
+    buf = torch.empty(p.nbytes, dtype=torch.uint8, device=p.device)
+    sp.note_kernel_launch("shard_wave", p.a, p.dims_d, per_shard=p.W)
+    rc = (_launch or _library_launch())(
+        *p.addr, args[0].data_ptr(), args[1].data_ptr(), buf.data_ptr(),
+        stream)
     if rc != 0:
         raise RuntimeError(f"shard_wave launch failed: CUDA error {rc}")
     launches += 1
-    return WaveCandidates(score, idx, count, ties)
+    return WaveCandidates(*[buf.view(dt).as_strided(shape, stride, at)
+                            for dt, shape, stride, at in p.views])
+
+
+def shard_wave_plain_combined(cfg, D: int, C: int, args) -> WaveCandidates:
+    """The plain version over every shard and :func:`combine` of its lists,
+    on the device of the arguments: what :func:`shard_wave` gives for CPU
+    tensors."""
+    c = shard_wave_plain_all(cfg, D, C, args)
+    return c._replace(**dict(zip(COMBINED, combine(
+        c, C, unpack_args(cfg, args).idle.shape[1]))))
 
 
 def shard_wave(cfg, D: int, C: int, args) -> WaveCandidates:
-    """W attempts over D shards: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. The launch (a block a column and shard) is
-    recorded on both."""
-    dev = args[0].device
-    if dev.type == "cuda":
+    """W attempts over D shards and their lists combined: the CUDA kernel
+    for CUDA tensors, the plain version and :func:`combine` for CPU
+    tensors. The launch (a block a column and shard) is recorded on
+    both."""
+    if args[0].is_cuda:
         return shard_wave_cuda(cfg, D, C, args)
+    dev = args[0].device
     if dev.type == "cpu":
         _check(cfg, D, C, unpack_args(cfg, args))
-        return shard_wave_plain_all(cfg, D, C, args)
+        return shard_wave_plain_combined(cfg, D, C, args)
     raise ValueError(f"no wave placer for device {dev}")
 
 
@@ -436,9 +617,12 @@ def bound_bytes(cfg, N: int, R: int, G: int, W: int, C: int, D: int,
     """Bytes one launch must move: the node rows of
     ``shard_placer.bound_bytes`` read once, with the three per-template
     maps once per distinct template and the OR-group map once per distinct
-    group among the W columns; the W tasks' scalars; the outputs."""
+    group among the W columns; the W tasks' scalars; the outputs: the
+    per-shard lists, counts and ties, and the combined lists (the found
+    flags a byte each), counts and ties."""
     per_row = (3 * templates + groups + 4 + 5 * R + 3
                + (2 * G if cfg.enable_gpu else 0))
     ins = N * per_row + W * (R + 1 + len(TASK_ROWS))
-    outs = 2 * (2 * D * C * W + 2 * D * W)
-    return 4 * (ins + outs)
+    layout, _ = output_layout(D, W, C)
+    outs = sum(math.prod(shape) * dt.itemsize for dt, shape, _ in layout)
+    return 4 * ins + outs
