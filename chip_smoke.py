@@ -20,6 +20,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    apart; the launch counts are set to 0 just before and read just after,
    and the round placer must have launched; the decision fingerprint must
    be the one the JAX package and its numpy oracle give, f61d52ccc18b1e69;
+   this is check M's cycle 0, a full upload into the Session's resident
+   buffers (phase 27);
 5. sub-scale: at (1024, 640, 16) the kernel cycle and the plain cycle on the
    card give equal packed decisions, with fingerprint 60a8509ec33e772c;
 6. round placer time: CUDA events around launches at the main path's
@@ -176,7 +178,33 @@ Phases, each of which fails the run (exit code 1) when it fails:
    allocate cycle's own inputs (the sla deadline an ordering key, the
    snapshot repacked after enqueue; at both cluster sizes), enqueue's 3
    one-segment sums and the cycle's namespace folds at check K's shapes,
-   each against its plain version, bitwise.
+   each against its plain version, bitwise;
+26. check L, many namespaces under the shipped conf:
+   ``_synthetic_cluster(256, 160, 16)`` with job j in namespace
+   ``ns-{j % 40}`` (64 padded namespaces: 128 drf namespace-fold pairs,
+   four tiles of 32 in kernel 3); kernel 3's first 3 launches bitwise
+   against the plain version at both cluster sizes; the counts are set to
+   0 just before the Session's cycle and read just after, and kernel 3
+   must have launched; fingerprint, tasks placed and jobs ready must be
+   the JAX Session's (``scripts/check_l_targets.py``); then one churn
+   cycle (5 % of the gangs complete, as many go back to Pending:
+   ``synthetic.steady_churn``) through reopen, dispatch and complete,
+   held to a fresh full Session on a copy of the cluster taken before it;
+27. check M, this slice's main path: three such churn cycles of the north
+   star's Session of phase 4 (about 312 gangs, 5,000 tasks, each way a
+   cycle), each a refresh in place and a delta upload into the resident
+   buffers with no digest mismatch, the round placer's launches counted
+   from 0, and the fingerprint of a fresh full Session on a copy of the
+   cluster taken before the cycle; each prints its refresh ms beside the
+   fresh Session's pack ms, its upload bytes beside a full upload's, its
+   drain's readback bytes and its cycle ms;
+28. kernel 3's namespace fold in tiles: at check B's job and node counts
+   with 4, 32 and 64 namespaces at two dims (P = 8, 64 and 128 pairs),
+   bitwise against the plain version, its device time per launch (phase
+   11's method), the same launches timed by CUDA events behind a spin
+   kernel (``device_ms``'s way when no trace keeps a launch) and its
+   phase split; kernel 3's entry of the kernels line carries the pair
+   tile and these times.
 
 The expected fingerprints are the JAX package's scan path's (and, for A,
 B, D and the raw configuration-5 cycle, its oracle's too). Each phase's
@@ -218,6 +246,16 @@ WAVES_J = ((4, 16), 8)
 #: pairs: the JAX Session's on the same cluster and conf (PERF.md section 2)
 CHECK_K = (2675, "8da50a76f2936639", "ff4864be716c903f", 16498, 512,
            "4650ef8564235adc")
+#: check L: the cluster (nodes, gangs, tasks a gang), its namespaces, and
+#: the JAX Session's fingerprint, tasks placed and jobs ready under the
+#: shipped conf (env JAX_PLATFORMS=cpu python scripts/check_l_targets.py)
+CHECK_L = ((256, 160, 16), 40, ("33fdad6704feca1a", 2560, 160))
+#: churn a cycle (a share of the placed gangs completes, as many go back to
+#: Pending), its seed, and the churn cycles of check M; check L runs one
+CHURN = (0.05, 11)
+CHURN_CYCLES = 3
+#: kernel 3's fold timing: namespaces at two dims (P = 8, 64, 128 pairs)
+FOLD_S = (4, 32, 64)
 #: kernel 6's fixture shapes: the reference's default, and check G's padded
 #: node axis (shards, nodes, columns)
 PLANTED = ((2, 32, 4), (4, 10240, 4))
@@ -545,16 +583,68 @@ def traced_device_ms(prof, name, reps):
     ``torch.profiler`` trace of a run of ``reps`` of them. The trace may
     keep fewer launches than ran (on an H100 it kept 169 to 189 of 200 of
     kernel 5, 180 of 200 of kernel 4, 46 of 50 of kernel 3): the mean over
-    those it kept."""
+    those it kept. (None, 0) when it kept none."""
     import torch
     dev = [(e.time_range.end - e.time_range.start) / 1000
            for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and name in e.name]
-    if not 0 < len(dev) <= reps:
+    if len(dev) > reps:
         raise RuntimeError(f"the trace holds {len(dev)} {name} launches "
                            f"of {reps}")
-    return sum(dev) / len(dev), len(dev)
+    return (sum(dev) / len(dev), len(dev)) if dev else (None, 0)
+
+
+def device_ms(launch, name, reps, traces=3):
+    """(device ms a launch, launches the trace kept, CUDA events ms a
+    launch) of ``reps`` calls of ``launch``, each of which launches kernel
+    ``name`` once, after 3 calls to warm up.
+
+    The events around the run time the launch's pace, which is the
+    wrapper's host work where that outlasts the kernel; the device time is
+    the mean of the launches a ``torch.profiler`` trace of the same run
+    kept. On an H100 a trace once kept none of 50 launches of kernel 3, so
+    a trace that keeps none is taken again, ``traces`` times in all. If
+    none keeps one, the device time is that of CUDA events around the
+    ``reps`` launches queued behind a spin kernel (``torch.cuda._sleep``),
+    so that the host has queued them all before the first starts; the
+    count kept is then 0. Raises if the spin kernel ends before the host
+    has queued them, at four lengths of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host_s = events_ms = 0.0
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                launch()
+            end.record()
+            host_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        events_ms = start.elapsed_time(end) / reps
+        ms, traced = traced_device_ms(prof, name, reps)
+        if traced:
+            return ms, traced, events_ms
+    cycles = max(int(host_s * 4e9), 10 ** 7)    # twice the host's time
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        gated = not start.query()
+        torch.cuda.synchronize()
+        if gated:
+            return start.elapsed_time(end) / reps, 0, events_ms
+        cycles *= 4
+    raise RuntimeError(f"{name}: the spin kernel ended before the host had "
+                       f"queued {reps} launches")
 
 
 def time_exchange(cb, iters=20000):
@@ -644,27 +734,17 @@ def time_dyn_kernel(call, cb=None):
     pointer array) takes longer than the kernel since the kernel became a
     cluster, so CUDA events around a run of launches time the host
     (``events_ms``); the kernel's own time (``ms``) is its device time per
-    launch in a ``torch.profiler`` trace of the same run."""
+    launch in a ``torch.profiler`` trace of the same run
+    (:func:`device_ms`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from volcano_tpu_torch.ops import dyn_placer as dp
     cfg, C, KP, M, args = call
     cb = dp.CLUSTER if cb is None else cb
-    for _ in range(3):
-        dp.dyn_place_cuda(cfg, C, KP, M, args, cb=cb)
-    torch.cuda.synchronize()
-    reps = 50
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            out = dp.dyn_place_cuda(cfg, C, KP, M, args, cb=cb)
-        end.record()
-        torch.cuda.synchronize()
-    events_ms = start.elapsed_time(end) / reps
-    ms, traced = traced_device_ms(prof, "dyn_placer_kernel", reps)
+    out = dp.dyn_place_cuda(cfg, C, KP, M, args, cb=cb)
+    ms, traced, events_ms = device_ms(
+        lambda: dp.dyn_place_cuda(cfg, C, KP, M, args, cb=cb),
+        "dyn_placer_kernel", 50)
     stats = {}
     dp.dyn_place_plain(cfg, C, KP, M, args, stats={})   # warm-up
     torch.cuda.synchronize()
@@ -826,25 +906,11 @@ def seg_fold_device_ms(call, reps=200):
     """The segmented sum's device ms per launch in a ``torch.profiler``
     trace of ``reps`` launches (and how many the trace kept), and CUDA
     events around the run (the launch's pace: the wrapper's host work
-    where it outlasts the kernel)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    where it outlasts the kernel), as :func:`device_ms` takes them."""
     from volcano_tpu_torch.ops import seg_fold as sf
     vals, seg, num = call
-    for _ in range(3):
-        sf.seg_fold_cuda(vals, seg, num)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            sf.seg_fold_cuda(vals, seg, num)
-        end.record()
-        torch.cuda.synchronize()
-    ms, traced = traced_device_ms(prof, "seg_fold", reps)
-    return ms, traced, start.elapsed_time(end) / reps
+    return device_ms(lambda: sf.seg_fold_cuda(vals, seg, num), "seg_fold",
+                     reps)
 
 
 def aff_built_calls():
@@ -1024,27 +1090,15 @@ def time_shard_kernel(call, geometry=None):
     array) takes longer than the kernel, so CUDA events around a run of
     launches time the host (``events_ms``); the kernel's own time (``ms``)
     is its device time per launch in a ``torch.profiler`` trace of the same
-    run."""
+    run (:func:`device_ms`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from volcano_tpu_torch.ops import shard_placer as sp
     cfg, D, args = call
     threads, rpt = geometry or (sp.THREADS, sp.ROWS_PER_THREAD)
-    for _ in range(3):
-        sp.shard_candidates_cuda(cfg, D, args, threads, rpt)
-    torch.cuda.synchronize()
-    reps = 200
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            sp.shard_candidates_cuda(cfg, D, args, threads, rpt)
-        end.record()
-        torch.cuda.synchronize()
-    events_ms = start.elapsed_time(end) / reps
-    ms, traced = traced_device_ms(prof, "shard_cand_kernel", reps)
+    ms, traced, events_ms = device_ms(
+        lambda: sp.shard_candidates_cuda(cfg, D, args, threads, rpt),
+        "shard_cand_kernel", 200)
     sp.shard_candidates_plain_all(cfg, D, args)        # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1140,30 +1194,18 @@ def compare_wave_plain(calls):
 
 def time_wave_kernel(call):
     """Wide candidate kernel ms per launch (device time in a
-    ``torch.profiler`` trace; CUDA events around the run time the
-    wrapper's host work, ``events_ms``), plain version ms per call, and the
-    least time for the same work on this card: the bytes of
+    ``torch.profiler`` trace, :func:`device_ms`; CUDA events around the
+    run time the wrapper's host work, ``events_ms``), plain version ms per
+    call, and the least time for the same work on this card: the bytes of
     ``shard_wave.bound_bytes`` against the float32 operations of W
     attempts on each row (each with its two views' selection)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from volcano_tpu_torch.ops import shard_wave as sw
     cfg, D, C, args = call
-    for _ in range(3):
-        sw.shard_wave_cuda(cfg, D, C, args)
-    torch.cuda.synchronize()
-    reps = 200
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            sw.shard_wave_cuda(cfg, D, C, args)
-        end.record()
-        torch.cuda.synchronize()
-    events_ms = start.elapsed_time(end) / reps
-    ms, traced = traced_device_ms(prof, "shard_wave_kernel", reps)
+    ms, traced, events_ms = device_ms(
+        lambda: sw.shard_wave_cuda(cfg, D, C, args), "shard_wave_kernel",
+        200)
     sw.shard_wave_plain_all(cfg, D, C, args)          # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1210,6 +1252,101 @@ def shard_counts():
 def zero_shard_counts():
     from volcano_tpu_torch.ops import shard_placer as sp
     sp.launches = sp.pops = 0
+
+
+def churn_cycle(ssn, rng, dyn=False):
+    """One churn cycle on a steady Session: ``synthetic.steady_churn`` of
+    its cluster, the touched jobs and nodes marked dirty, then reopen,
+    dispatch and complete; held to a fresh full Session on a copy of the
+    cluster taken before the cycle. The launches of the cycle's placer (the
+    dynamic-key one with ``dyn``) are set to 0 just before and read just
+    after. Returns the cycle's numbers; raises unless the fingerprints
+    agree and the cycle refreshed in place and shipped a delta smaller
+    than a full upload, with no digest mismatch."""
+    from volcano_tpu_torch.framework import Session
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    from volcano_tpu_torch.ops import round_placer as rp
+    from volcano_tpu_torch.synthetic import steady_churn
+    jobs, nodes = steady_churn(ssn.cluster, rng, CHURN[0])
+    for uid in jobs:
+        ssn.mark_dirty(job_uid=uid)
+    for name in nodes:
+        ssn.mark_dirty(node_name=name)
+    t0 = time.perf_counter()
+    copy = ssn.cluster.clone()
+    clone_ms = (time.perf_counter() - t0) * 1000
+    rp.launches = 0
+    zero_dyn_counts()
+    t0 = time.perf_counter()
+    refreshed = ssn.reopen(now=ssn.now)
+    ssn.complete_allocate(ssn.dispatch_allocate())
+    steady_ms = (time.perf_counter() - t0) * 1000
+    launches = dp.launches if dyn else rp.launches
+    st = dict(ssn.stats)
+    res = ssn.last_allocate
+    sha = fingerprint(res.task_node, res.task_mode)
+    fresh = Session(copy, ssn.conf, now=ssn.now, device=ssn.device)
+    fresh.run_allocate()
+    fres = fresh.last_allocate
+    want = fingerprint(fres.task_node, fres.task_mode)
+    out = {"churned_gangs": len(jobs), "touched_nodes": len(nodes),
+           "refresh": refreshed, "refresh_ms": st["refresh_ms"],
+           "fresh_pack_ms": fresh.stats["pack_ms"], "clone_ms": clone_ms,
+           "last_kind": st["last_kind"], "upload_bytes": st["upload_bytes"],
+           "full_upload_bytes": st["full_upload_bytes"],
+           "drain_readback_bytes": st["drain_readback_bytes"],
+           "drain_readback_rows": st["drain_readback_rows"],
+           "recoveries": st.get("recoveries", 0), "path": st["path"],
+           "cycle_ms": st["cycle_ms"], "apply_ms": st["apply_ms"],
+           "reopen_to_applied_ms": steady_ms,
+           "fresh_cycle_ms": fresh.stats["cycle_ms"],
+           "binds": len(ssn.binds), "launches": launches,
+           "fingerprint": sha, "fresh_fingerprint": want}
+    assert launches > 0, "the churn cycle launched no placer"
+    assert sha == want, (sha, want)
+    assert refreshed and st["last_kind"] == "delta", out
+    assert not st.get("recoveries"), out
+    assert 0 < st["upload_bytes"] < st["full_upload_bytes"], out
+    return out
+
+
+def time_digest(state, reps=20):
+    """The resident buffers' device digest at the north star: ms a digest
+    (CUDA events over ``reps``), its words, and the device memory its
+    int64 temporaries take above what was allocated before."""
+    import torch
+
+    from volcano_tpu_torch.ops import fused_io as fio
+    bufs = state.device
+    coefs = [fio.digest_coef(b.numel(), b.device) for b in bufs]
+    fio.device_digest(bufs, coefs)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fio.device_digest(bufs, coefs)
+    end.record()
+    torch.cuda.synchronize()
+    return dict(words=[b.numel() for b in bufs],
+                ms=start.elapsed_time(end) / reps,
+                temp_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def fold_call(S):
+    """Kernel 3 at check B's job and node counts with S namespaces at two
+    dims (P = 2 S fold pairs), drf job and namespace order, on the card."""
+    import torch
+
+    from volcano_tpu_torch.ops.allocate_scan import AllocateConfig
+    from volcano_tpu_torch.ops.dyn_cases import (PLACER_WEIGHTS,
+                                                 make_dyn_inputs)
+    flags, args = make_dyn_inputs(0, drf_job_order=True, drf_ns_order=True,
+                                  S=S, J=4096, N=1024)
+    return (AllocateConfig(**PLACER_WEIGHTS, **flags), 4, 12, 4,
+            [torch.from_numpy(a).cuda() for a in args])
 
 
 def zero_dyn_counts():
@@ -1310,6 +1447,9 @@ def main():
                "cycle_ms": ssn.stats["cycle_ms"],
                "apply_ms": ssn.stats["apply_ms"],
                "run_allocate_ms": session_ms,
+               "path": ssn.stats["path"], "last_kind": ssn.stats["last_kind"],
+               "upload_bytes": ssn.stats["upload_bytes"],
+               "drain_readback_bytes": ssn.stats["drain_readback_bytes"],
                "binds": len(ssn.binds), "launches": launches,
                "cluster_blocks": rp.CLUSTER, "fingerprint": sha}
         log(json.dumps(out))
@@ -2119,6 +2259,85 @@ def main():
         assert got == CHECK_K, (got, CHECK_K)
     except Exception as e:
         fail("25 (check K, enqueue, allocate, backfill)", e)
+
+    # ---- 26. check L: many namespaces on the dynamic-key path ----------
+    clock.lap("26 check_L")
+    try:
+        (shape_l, n_ns, want_l) = CHECK_L
+        t0 = time.perf_counter()
+        ci_l = _synthetic_cluster(*shape_l, namespaces=n_ns)
+        ssn_l = Session(ci_l, shipped, now=4149.0, device="cuda")
+        build_l_s = time.perf_counter() - t0
+        l_calls = record_launches(ssn_l, keep=3, stop_after=3, dyn=True)
+        assert len(l_calls) == 3, len(l_calls)
+        a_l = dp.unpack_args(l_calls[0][0], l_calls[0][4])
+        S_l, R_l = a_l.nsm.shape[0], a_l.jalloc.shape[0]
+        assert S_l * R_l > dp.PAIR_TILE, (S_l, R_l)
+        l_err = compare_dyn_kernel_plain(l_calls)
+        zero_dyn_counts()
+        ssn_l.run_allocate()
+        counts_l = dyn_counts()
+        res = ssn_l.last_allocate
+        got = (fingerprint(res.task_node, res.task_mode),
+               int((res.task_mode > 0).sum()), int(res.job_ready.sum()))
+        log(json.dumps({
+            "phase": "check_L", "nodes": shape_l[0],
+            "namespaces": n_ns, "padded_namespaces": S_l,
+            "fold_pairs": S_l * R_l,
+            "pair_tiles": -(-S_l * R_l // dp.PAIR_TILE),
+            "cluster_build_s": build_l_s,
+            "dyn_vs_plain": dict(launches=len(l_calls), max_abs_err=l_err),
+            "path": ssn_l.stats["path"], "pack_ms": ssn_l.stats["pack_ms"],
+            "cycle_ms": ssn_l.stats["cycle_ms"], **counts_l,
+            "fingerprint": got[0], "placed": got[1], "jobs_ready": got[2]}))
+        assert counts_l["launches"] > 0, "check L launched no dyn placer"
+        assert got == want_l, (got, want_l)
+        churn_l = churn_cycle(ssn_l, np.random.RandomState(CHURN[1]),
+                              dyn=True)
+        log(json.dumps({"phase": "check_L_churn", **churn_l}))
+    except Exception as e:
+        fail("26 (check L, 128 namespace-fold pairs)", e)
+
+    # ---- 27. check M: the north star's churn cycles, this slice's path --
+    clock.lap("27 check_M")
+    try:
+        # cycle 0 is phase 4's full cycle on ``ssn``, which holds the
+        # resident buffers since
+        assert ssn.stats["last_kind"] == "full" and \
+            ssn.stats["path"] == "round"
+        rng = np.random.RandomState(CHURN[1])
+        for c in range(1, CHURN_CYCLES + 1):
+            out = churn_cycle(ssn, rng)
+            log(json.dumps({"phase": "check_M", "cycle": c, **out}))
+        log(json.dumps({"phase": "check_M_digest",
+                        **time_digest(next(iter(ssn._resident.values())))}))
+    except Exception as e:
+        fail("27 (check M, the north star's churn cycles)", e)
+
+    # ---- 28. kernel 3's namespace fold in tiles: device time by pairs ---
+    clock.lap("28 fold_tiles")
+    try:
+        fold = {}
+        for S in FOLD_S:
+            call = fold_call(S)
+            err = compare_dyn_kernel_plain([call])
+            t = time_dyn_kernel(call)
+            # the same launches timed without a trace, as device_ms does
+            # when no trace keeps one
+            queued_ms = device_ms(lambda: dp.dyn_place_cuda(*call),
+                                  "dyn_placer_kernel", 50, traces=0)[0]
+            split = dyn_phase_split(call, dp.CLUSTER)
+            P = 2 * S
+            fold[P] = t["ms"]
+            log(json.dumps({"phase": "dyn_fold_tiles", "S": S, "P": P,
+                            "tiles": -(-P // dp.PAIR_TILE),
+                            "max_abs_err": err, **t,
+                            "queued_ms": queued_ms, "split_us": split}))
+        for k in kernels:
+            if k["name"] == "dyn_placer":
+                k.update(pair_tile=dp.PAIR_TILE, fold_pairs_ms=fold)
+    except Exception as e:
+        fail("28 (kernel 3's fold tiles)", e)
     clock.lap()
 
     log(json.dumps({"phase_seconds": clock.seconds}))

@@ -21,6 +21,7 @@ Where there is no card every test skips (decided inside the test).
 """
 
 import dataclasses
+import re
 
 import pytest
 import torch
@@ -1005,3 +1006,202 @@ def test_actions_on_the_card_match_the_cpu(conf):
     for a, b in zip(out["cpu"], out["cuda"]):
         np.testing.assert_array_equal(a, b)
     assert out["cuda"][0].any() and out["cuda"][4].any()
+
+
+# ---- kernel 3's namespace fold in tiles of 32 pairs ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("S", [4, 32, 64])
+def test_dyn_cluster_fold_tiles_match_plain(S, cb):
+    """P = S x R fold pairs at R = 2: 8 (one tile), 64 and 128 (two and
+    four tiles of 32), with a ragged last job slice, bitwise against the
+    plain version."""
+    need_card()
+    pops = []
+    for seed in (0, 1):
+        flags, args = make_dyn_inputs(seed, drf_job_order=True,
+                                      drf_ns_order=True, S=S, J=1000, N=200)
+        cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+        t = [torch.from_numpy(a).cuda() for a in args]
+        a = dp.unpack_args(cfg, t)
+        assert (a.nsm.shape[0], a.jalloc.shape[0]) == (S, 2)
+        pops.append(int(check_dyn_cluster(cfg, t, cb)[-2][0, 0]))
+    assert max(pops) >= 2, pops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cb", [8, 16])
+def test_dyn_cluster_fold_tiles_at_the_most_jobs(cb):
+    """128 fold pairs at J at the wrapper's limit: bitwise; one job more
+    raises."""
+    need_card()
+    kw = dict(drf_job_order=True, drf_ns_order=True, S=64, N=200)
+    flags, small = make_dyn_inputs(0, **kw)
+    cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+    jmax = dyn_max_jobs(cfg, [torch.from_numpy(a) for a in small], cb)
+    assert jmax > 4096
+    for J in (jmax, jmax + 1):
+        _, args = make_dyn_inputs(0, J=J, **kw)
+        t = [torch.from_numpy(a).cuda() for a in args]
+        if J == jmax:
+            check_dyn_cluster(cfg, t, cb)
+        else:
+            with pytest.raises(ValueError, match=f"J <= {jmax}"):
+                dp.dyn_place_cuda(cfg, 4, 12, 4, t, cb=cb)
+
+
+def shipped_conf():
+    import os
+
+    from volcano_tpu_torch.framework import parse_conf
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "conf", "volcano-scheduler.conf")) as f:
+        return parse_conf(f.read())
+
+
+@pytest.mark.cuda
+def test_a_snapshot_past_kernel_3s_jobs_takes_the_mesh_path():
+    """25,000 one-task gangs under the shipped conf: J pads to 28,672,
+    past kernel 3's job limit at these shapes. The Session's cycle takes
+    the one-shard mesh path (kernel 4, no kernel-3 launch), chosen before
+    the cycle, and gives the decisions of the fused cycle run through the
+    plain dynamic-key placer on the card. Not its ``job_attempted``: which
+    jobs a cycle pops before capacity runs out differs between the
+    reference's own scan path and its fused kernel (ROADMAP section 3
+    (i)), and the mesh path gives the scan path's."""
+    need_card()
+    from volcano_tpu_torch.arrays import to_device
+    from volcano_tpu_torch.framework import Session
+    from volcano_tpu_torch.ops import allocate_scan as tas
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    ssn = Session(_synthetic_cluster(16, 25000, 1), shipped_conf(),
+                  device="cuda")
+    cfg, extras = ssn._derived_allocate_inputs()
+    assert cfg.batch_rounds > 0
+    assert tas.cycle_path(cfg, ssn.snap, extras) == "dyn_mesh"
+    assert re.search(r"J <= \d+", tas.dyn_refusal(cfg, ssn.snap, extras))
+    plain = tas.make_allocate_cycle(cfg, dyn_placer=dp.dyn_place_plain)(
+        to_device(ssn.snap, "cuda"), to_device(extras, "cuda"))
+    dp.launches = sp.launches = 0
+    ssn.run_allocate()
+    assert ssn.stats["path"] == "dyn_mesh"
+    assert dp.launches == 0 and sp.launches > 0
+    res = ssn.last_allocate
+    for f in ("task_node", "task_mode", "task_gpu", "job_ready",
+              "job_pipelined"):
+        want = getattr(plain, f).cpu().numpy()
+        assert (getattr(res, f) == want).all(), f
+    assert (res.task_mode > 0).sum() > 100
+
+
+def scalar_cluster(n_dims):
+    """A small cluster whose resources have ``n_dims`` dims: cpu, memory
+    and n_dims - 2 extended resources on every node and task, and one
+    Pending gang for enqueue."""
+    from volcano_tpu_torch import api
+    extra = {f"example.com/r{k:02d}": "4" for k in range(n_dims - 2)}
+    ci = api.ClusterInfo()
+    ci.add_queue(api.QueueInfo("default", weight=1))
+    for i in range(8):
+        ci.add_node(api.NodeInfo(f"n{i}", allocatable=api.Resource
+                                 .from_resource_list({"cpu": "16",
+                                                      "memory": "64Gi",
+                                                      "pods": "110",
+                                                      **extra})))
+    for j in range(4):
+        job = api.JobInfo(f"default/j{j}", queue="default", min_available=2,
+                          pod_group_phase=(api.PodGroupPhase.PENDING if j == 3
+                                           else api.PodGroupPhase.INQUEUE))
+        for t in range(2):
+            job.add_task(api.TaskInfo(
+                uid=f"default/j{j}-{t}", name=f"j{j}-{t}",
+                resreq=api.Resource.from_resource_list(
+                    {"cpu": "1", "memory": "1Gi",
+                     **{k: "1" for k in extra}})))
+        ci.add_job(job)
+    return ci
+
+
+def past_max_r():
+    """9 resource dims: kernel 1's, 3's, 4's and 5's MAX_R is 8."""
+    from volcano_tpu_torch.framework import Session, parse_conf
+    ssn = Session(scalar_cluster(rp.MAX_R + 1), parse_conf(
+        "actions: allocate\ntiers:\n- plugins:\n  - name: gang\n"
+        "  - name: binpack\n"), device="cuda")
+    assert ssn.snap.nodes.idle.shape[1] == rp.MAX_R + 1
+    ssn.run_allocate()
+
+
+def past_max_c():
+    """A candidate depth of 9: the wave walk's depth is min(W, 8)
+    (``wave_candidate_depth``), so no snapshot reaches it."""
+    assert wave_candidate_depth(64) == sw.MAX_C
+    t = [torch.from_numpy(a).cuda() for a in make_wave_inputs(0, D=1, W=9)]
+    sw.shard_wave(AllocateConfig(**PLACER_WEIGHTS, enable_gpu=False), 1,
+                  sw.MAX_C + 1, t)
+
+
+def past_seg_fold_dims():
+    """43 resource dims in enqueue's sums (the shipped conf's enqueue)."""
+    from volcano_tpu_torch.framework import Session
+    from volcano_tpu_torch.ops import seg_fold as sf
+    ssn = Session(scalar_cluster(sf.MAX_DIMS + 1), shipped_conf(),
+                  device="cuda")
+    assert ssn.snap.nodes.idle.shape[1] == sf.MAX_DIMS + 1
+    ssn.run_enqueue()
+
+
+def past_wave_rows():
+    """One shard of rows just past what kernel 5's last block keeps in
+    shared memory; at the limit the launch runs."""
+    B = sw.max_row_blocks(1)
+    rows = B * sw.THREADS
+    cfg = AllocateConfig(**PLACER_WEIGHTS, enable_gpu=False)
+    for NL in (rows, rows + 1):
+        t = [torch.from_numpy(a).cuda()
+             for a in make_wave_inputs(0, D=1, W=1, NL=NL)]
+        sw.shard_wave(cfg, 1, 1, t)
+        torch.cuda.synchronize()
+
+
+#: the limits the card path keeps and the reference does not have (ROADMAP
+#: section 3): each builds a snapshot (or a launch) just past its limit
+LIMITS = {
+    "max_r": (past_max_r, r"1\.\.8 resource dims"),
+    "max_c": (past_max_c, r"candidate depth is 1\.\.8"),
+    "seg_fold_dims": (past_seg_fold_dims, "at most 42 dims"),
+    "wave_rows": (past_wave_rows, "merge levels"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limit", sorted(LIMITS))
+def test_the_card_path_refuses_past_its_limits(limit):
+    need_card()
+    build, match = LIMITS[limit]
+    with pytest.raises(ValueError, match=match):
+        build()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4097, 5_000_000])
+def test_device_digest_on_the_card_equals_host_digest(n):
+    """The resident buffers' digest on the card: bit for bit the host's,
+    with NaNs, negative zeros, infinities and bools planted."""
+    need_card()
+    import numpy as np
+
+    from volcano_tpu_torch.ops import fused_io as fio
+    rng = np.random.RandomState(n)
+    f = (rng.randn(n) * 1e20).astype(np.float32)
+    f[rng.randint(n, size=min(n, 7))] = np.float32(-0.0)
+    f[rng.randint(n, size=min(n, 5))] = np.nan
+    f[rng.randint(n, size=min(n, 3))] = -np.inf
+    i = rng.randint(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)
+    b = rng.rand(n) < 0.3
+    bufs = (f, i, b)
+    dev = fio.device_digest([torch.from_numpy(x).cuda() for x in bufs])
+    assert dev.is_cuda
+    np.testing.assert_array_equal(dev.cpu().numpy().view(np.uint32),
+                                  fio.host_digest(bufs))

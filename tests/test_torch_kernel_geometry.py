@@ -121,11 +121,13 @@ CHECK_K_SHAPE = (1024, 5120, 8, 16, 2, 0, 16, 4, 8, 5, 0)
 
 
 def plan_bytes(N, J, CB, C, M, R, G, Q, S, P, NKS, NH, SK=0, lists=0):
-    """The source's make_plan, term by term."""
+    """The source's make_plan, term by term: one fold tile of TP =
+    min(P, 32) pairs, and one namespace word a job."""
     col, cap, jcap = 2 * R + 1 + G, -(-N // CB), -(-J // CB)
+    TP = min(P, 32)
     node = col * cap + M + M * col + 3 * C * M + SK + lists
-    queue = 2 * Q * R + 3 * Q + R + S * R + S + 2 * P * 16 + P
-    jobs = jcap * (NKS + NH + Q + 2 * S + 1 + R + 4 + P + 11)
+    queue = 2 * Q * R + 3 * Q + R + S * R + S + 2 * TP * 16 + TP
+    jobs = jcap * (NKS + NH + Q + 1 + 1 + R + 4 + TP + 11)
     return (node + queue + jobs) * 4
 
 
@@ -134,7 +136,7 @@ def plan_bytes(N, J, CB, C, M, R, G, Q, S, P, NKS, NH, SK=0, lists=0):
 @pytest.mark.parametrize("CB", [8, 16])
 def test_dyn_shared_bytes_at_the_checked_shapes(shape, CB):
     """Each block's rows fit its 227 KB at both cluster sizes, though the
-    job rows of one launch (about 55 words a job) do not fit one SM's."""
+    job rows of one launch (about 47 words a job) do not fit one SM's."""
     N, J, *rest = shape
     got = dp.shared_bytes(N, J, CB, *rest)
     assert got == plan_bytes(N, J, CB, *rest)
@@ -142,6 +144,40 @@ def test_dyn_shared_bytes_at_the_checked_shapes(shape, CB):
     assert dp.max_jobs(N, CB, *rest) >= J
     per_job = dp.plan_words(N, CB, *rest)[1]
     assert J * per_job * 4 > 232448
+
+
+@pytest.mark.parametrize("CB", [8, 16])
+def test_dyn_max_jobs_at_check_B_did_not_fall(CB):
+    """The namespace word and the fold's one tile of lists take fewer
+    words a job than the one-hot rows and a list a pair did: check B's
+    shapes take at least the 16,560 jobs they took before."""
+    N, J, *rest = CHECK_B_SHAPE
+    assert dp.max_jobs(N, 16, *rest) >= 16560
+    assert dp.max_jobs(N, CB, *rest) >= J
+
+
+@pytest.mark.parametrize("S", [4, 32, 64, 1024])
+def test_dyn_launch_plan_takes_many_fold_pairs(S):
+    """P = S x R fold pairs past the one tile of 32: the launch plan takes
+    them (P = 8, 64, 128 and 2,048 at R = 2), and reports the job limit
+    of one tile of lists, which does not fall as P grows past 32."""
+    kw = dict(drf_job_order=True, drf_ns_order=True, S=S, N=200)
+    flags, args = make_dyn_inputs(0, **kw)
+    cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+    a = dp.unpack_args(cfg, [torch.from_numpy(x) for x in args])
+    R, N, _, C, J, Q, S_, NH, G = dp._shapes(a)
+    assert (S_, R) == (S, 2)
+    cb, smem = dp.launch_plan(cfg, C, 4, a)
+    assert cb == dp.CLUSTER and smem <= dp.MAX_SHARED
+    rest = (C, 4, R, G, Q, S, S * R, a.skeys.shape[0], NH)
+    jmax = dp.max_jobs(N, cb, *rest)
+    assert smem == plan_bytes(N, J, cb, *rest)
+    assert jmax >= J and dp.plan_words(N, cb, *rest)[1] == (
+        a.skeys.shape[0] + NH + Q + 2 + R + 4 + min(S * R, 32) + 11)
+    if S * R >= 32:
+        # the fold's per-job words stop growing at one tile
+        assert dp.plan_words(N, cb, *rest)[1] == dp.plan_words(
+            N, cb, C, 4, R, G, Q, 16, 32, a.skeys.shape[0], NH)[1]
 
 
 def test_dyn_shared_bytes_with_affinity_and_gpu_cards():

@@ -199,19 +199,23 @@ def test_port_imports_without_jax():
         "ssn = Session(_synthetic_cluster(16, 8, 4), conf, device='cpu')\n"
         "ssn.run_allocate()\n"
         "assert ssn.binds\n"
+        "first = [b.node_name for b in ssn.binds]\n"
+        "assert ssn.reopen(now=ssn.now)\n"
+        "ssn.run_allocate()\n"
+        "assert ssn.stats['last_kind'] == 'delta'\n"
         "conf.sharding = True\n"
         "sharded = Session(_synthetic_cluster(16, 8, 4), conf, device='cpu')\n"
         "sharded.run_allocate()\n"
         "assert sharded._sharding_mesh().size == 1\n"
         "assert [b.node_name for b in sharded.binds] == "
-        "[b.node_name for b in ssn.binds]\n"
+        "first\n"
         "conf.wave_width = 8\n"
         "from volcano_tpu_torch.ops import shard_wave\n"
         "wave = Session(_synthetic_cluster(16, 8, 4), conf, device='cpu')\n"
         "wave.run_allocate()\n"
         "assert shard_wave.waves > 0\n"
         "assert [b.node_name for b in wave.binds] == "
-        "[b.node_name for b in ssn.binds]\n"
+        "first\n"
         "from volcano_tpu_torch.actions import get_action\n"
         "from volcano_tpu_torch.synthetic import admission_scenario\n"
         "conf = chip_smoke.check_k_conf()\n"
@@ -227,6 +231,7 @@ def test_port_imports_without_jax():
         "assert torch.equal(out, x * 2)\n"
         "assert pallas_block_findings(rec, 32, rows, 'planted')\n"
         "for m in ('volcano_tpu_torch.parallel.sharding',\n"
+        "          'volcano_tpu_torch.ops.fused_io',\n"
         "          'volcano_tpu_torch.ops.shard_placer',\n"
         "          'volcano_tpu_torch.ops.shard_wave',\n"
         "          'volcano_tpu_torch.ops.enqueue',\n"

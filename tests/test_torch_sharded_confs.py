@@ -14,6 +14,7 @@ DeprecationWarning (ROADMAP section 3 (b)) and no other warning.
 
 import dataclasses
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -119,3 +120,45 @@ def test_planted_contention_truncates_as_the_reference(D):
         np.testing.assert_array_equal(got, want)
         assert sw.truncations == truncations, W
         assert (sw.truncations > 0) == truncates, W
+
+
+@pytest.mark.parametrize("limit", ["jobs", "keys"])
+@pytest.mark.parametrize("name", ["shipped", "hdrf"])
+def test_a_snapshot_kernel_3_refuses_takes_the_one_shard_mesh(
+        name, limit, monkeypatch):
+    """A dynamic-key snapshot that the dynamic-key kernel's launch plan
+    refuses (J past its job limit, or more ordering keys than it keys
+    on; here the limits are lowered, as a card with less shared memory or
+    a longer key plan would meet them) takes the one-shard mesh path,
+    chosen from shapes before the cycle: no dynamic-key launch, pops
+    through the shard-local candidate search, and the fused path's
+    decisions, which are the JAX scan path's."""
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    from volcano_tpu_torch.ops import shard_placer as sp
+    cfg, snap, extras = sharded_inputs(name)
+    pcfg = port_cfg(cfg)
+    assert pcfg.batch_rounds > 0
+    s, e = port_inputs(snap, extras)
+    assert tas.cycle_path(pcfg, s, e) == "dyn"
+    dp.pops = 0
+    fused = tas.make_allocate_cycle(pcfg)(s, e).packed_decisions().numpy()
+    assert dp.pops > 0
+    if limit == "jobs":
+        monkeypatch.setattr(dp, "MAX_SHARED", 0)
+        match = "J <= 0"
+    else:
+        monkeypatch.setattr(dp, "MAX_KEYS", 3)
+        match = "ordering keys, over 3"
+    assert tas.cycle_path(pcfg, s, e) == "dyn_mesh"
+    assert re.search(match, tas.dyn_refusal(pcfg, s, e))
+    dp.pops = sp.pops = 0
+    got = tas.make_allocate_cycle(pcfg)(s, e).packed_decisions().numpy()
+    assert dp.pops == 0 and sp.pops > 0
+    np.testing.assert_array_equal(got, fused)
+    np.testing.assert_array_equal(got, jax_scan_packed(name))
+    # a dynamic-key placer given by the caller is never routed
+    dp.pops = 0
+    plain = tas.make_allocate_cycle(pcfg, dyn_placer=dp.dyn_place_plain)(
+        s, e).packed_decisions().numpy()
+    assert dp.pops > 0
+    np.testing.assert_array_equal(plain, fused)

@@ -22,20 +22,27 @@
 // - Block r owns the jobs [r * jcap, min((r + 1) * jcap, J)), jcap =
 //   ceil(J / CB), and keeps their rows in its shared memory for the whole
 //   launch: the static key rows, hdrf columns, queue one-hot, namespace
-//   rows, gang and eligibility inputs, and the live done, popped, ready,
+//   word, gang and eligibility inputs, and the live done, popped, ready,
 //   pipelined, cursor, allocation count and allocation [R]. It also owns
 //   the nodes [r * cap, ...), cap = ceil(N / CB), with their live state in
 //   shared memory, as kernel 1. The queue allocations [Q, R] are a replica
 //   in every block: each applies the same commits in the same order.
 // - Per pop, every block computes the queue gate and share from its
-//   replica, then (drf namespace order) the namespace fold: each block
-//   lists its nonzero member terms in job order, one cluster barrier, and
-//   every block folds the CB lists through distributed shared memory in
-//   block order, one warp a (namespace, dim) pair, so every block holds the
-//   sum the plain version folds. Skipping a term of exactly 0 changes no
-//   bit: the fold starts at +0.0 and x + (+-0) == x for every x but -0.0,
-//   which a sum started at +0.0 never is. There is no reassociation: the
-//   terms are added one at a time in index order.
+//   replica, then (drf namespace order) the namespace fold over the P =
+//   S x R (namespace, dim) pairs, in tiles of 32 pairs: for each tile,
+//   each block lists its nonzero member terms in job order (a 32-bit mask
+//   a job), one cluster barrier, and every block folds the CB lists
+//   through distributed shared memory in block order, one warp a pair, so
+//   every block holds the sum the plain version folds. A tile after the
+//   first takes one more barrier before its listing, since the list buffer
+//   of 32 pairs is reused and other blocks may still read the last tile's.
+//   Skipping a term of exactly 0 changes no bit: the fold starts at +0.0
+//   and x + (+-0) == x for every x but -0.0, which a sum started at +0.0
+//   never is. There is no reassociation: each pair's terms are added one
+//   at a time in index order.
+// - A job's namespace is one int in shared memory (the wrapper derives it
+//   from the one-hot rows): the key namespace + 1 in its low 16 bits, the
+//   fold namespace + 1 (0 for a job outside every fold) in its high bits.
 // - Eligibility and the keys of each of its jobs (the dynamic ones into a
 //   table), then its best job: the lexicographic argmin as one reduction
 //   of (key columns..., index) tuples with a NaN ordered before every
@@ -78,9 +85,12 @@ constexpr int KEY_NS = -1, KEY_QSHARE = -2, KEY_READY = -3, KEY_JSHARE = -4;
 constexpr int KEY_HCOL = -8;
 // rows of the dynamic key table: codes -1 .. -4
 constexpr int N_DYN = 4;
-// most (namespace, dim) pairs of the namespace fold, and most jobs a thread
-// keeps in its eligibility bitmask
-constexpr int MAX_PAIRS = 32;
+// (namespace, dim) pairs of one tile of the namespace fold, the most
+// namespaces a job's namespace word encodes (the namespace sums in shared
+// memory bind first), and the most jobs a thread keeps in its eligibility
+// bitmask
+constexpr int PAIR_TILE = 32;
+constexpr int MAX_NS = 0xffff - 1;
 constexpr int JOB_BITS = 32;
 // static shared memory the kernel may keep: ops/dyn_placer.py's
 // MAX_SHARED leaves this much of a block's 232,448 bytes for it
@@ -92,7 +102,7 @@ constexpr size_t STATIC_SHARED = 4096;
 enum Ptr {
   P_RESREQ, P_GPU_REQ, P_PREF, P_SUFFIX, P_TMPL, P_GRP, P_VOLN, P_VOLOK,
   P_REV, P_TIDOK, P_NBE, P_CAND, P_CSLOT, P_SKEYS, P_HCOLS, P_QID, P_QOH,
-  P_NSM, P_NSC, P_NSW, P_MINAV, P_RDY0, P_NPEND, P_ELIGS, P_VALIDF, P_CANB,
+  P_NSID, P_NSC_UNUSED, P_NSW, P_MINAV, P_RDY0, P_NPEND, P_ELIGS, P_VALIDF, P_CANB,
   P_DES, P_QEX, P_TOTAL, P_KMAX, P_TGT, P_TSTAT, P_TSCORE, P_NASCORE,
   P_BLOCKNR, P_BLOCKALL, P_BONUS, P_LOCKED, P_ORFEAS, P_RELMP, P_ALLOC,
   P_CNT, P_MAXP, P_GIDLE0, P_LIVE, P_SKDOM, P_SK_SEL, P_ETA_SK, P_ETA_DOM,
@@ -122,11 +132,11 @@ enum Phase { PH_PROLOGUE, PH_GATE_FOLD, PH_ELIG, PH_ARGMIN, PH_ATTEMPTS,
 // launch's slot arrays, the queue replicas and per-pop scratch, then the
 // job rows [jcap] each.
 struct Plan {
-  int cap, jcap, col, P;
+  int cap, jcap, col, P, TP;
   int st, save_node, save_val, slot_node, slot_mode, slot_card, tot, lists;
   int qalloc, des, qex, over, qshare, total, ns_alloc, ns_share, wcnt, woff,
       fcnt;
-  int skeys, hcols, qoh, nsm, nsc, validf, jalloc, dk, fl;
+  int skeys, hcols, qoh, nsid, validf, jalloc, dk, fl;
   int qid, minav, rdy0, npend, eligs, done, popped, jready, jpipe, cursor,
       acount;
   int words;
@@ -147,6 +157,7 @@ __host__ __device__ inline Plan make_plan(int N, int J, int CB, int CM,
   p.jcap = (J + CB - 1) / CB;
   p.col = 2 * R + 1 + G;
   p.P = P;
+  p.TP = P < PAIR_TILE ? P : PAIR_TILE;
   const int jc = p.jcap;
   int w = 0;
   p.st = take(w, p.col * p.cap);
@@ -165,18 +176,17 @@ __host__ __device__ inline Plan make_plan(int N, int J, int CB, int CM,
   p.total = take(w, R);
   p.ns_alloc = take(w, S * R);
   p.ns_share = take(w, S);
-  p.wcnt = take(w, P * CWARPS);
-  p.woff = take(w, P * CWARPS);
-  p.fcnt = take(w, P);
+  p.wcnt = take(w, p.TP * CWARPS);
+  p.woff = take(w, p.TP * CWARPS);
+  p.fcnt = take(w, p.TP);
   p.skeys = take(w, NKS * jc);
   p.hcols = take(w, NH * jc);
   p.qoh = take(w, Q * jc);
-  p.nsm = take(w, S * jc);
-  p.nsc = take(w, S * jc);
+  p.nsid = take(w, jc);
   p.validf = take(w, jc);
   p.jalloc = take(w, R * jc);
   p.dk = take(w, N_DYN * jc);
-  p.fl = take(w, P * jc);
+  p.fl = take(w, p.TP * jc);
   p.qid = take(w, jc);
   p.minav = take(w, jc);
   p.rdy0 = take(w, jc);
@@ -205,8 +215,7 @@ struct Args {
   const float* hcols;  // [NH, J]
   const int* qid;      // [1, J]
   const float* qoh;    // [Q, J]
-  const float* nsm;    // [S, J]
-  const float* nsc;    // [S, J]
+  const int* nsid;     // [1, J]: the namespace word
   const float* nsw;    // [1, S]
   const int* minav;    // [1, J]
   const int* rdy0;
@@ -351,8 +360,7 @@ __global__ void __launch_bounds__(CBLOCK, 1)
   float* skeys = F(pl.skeys);
   float* hcols = F(pl.hcols);
   float* qoh = F(pl.qoh);
-  float* nsm = F(pl.nsm);
-  float* nsc = F(pl.nsc);
+  int* nsid = I(pl.nsid);
   float* validf = F(pl.validf);
   float* jalloc = F(pl.jalloc);
   float* dk = F(pl.dk);
@@ -423,10 +431,7 @@ __global__ void __launch_bounds__(CBLOCK, 1)
     for (int k = 0; k < a.NKS; ++k) skeys[k * jcap + x] = a.skeys[k * J + j];
     for (int k = 0; k < a.NH; ++k) hcols[k * jcap + x] = a.hcols[k * J + j];
     for (int q = 0; q < Q; ++q) qoh[q * jcap + x] = a.qoh[q * J + j];
-    for (int s = 0; s < S; ++s) {
-      nsm[s * jcap + x] = a.nsm[s * J + j];
-      nsc[s * jcap + x] = a.nsc[s * J + j];
-    }
+    nsid[x] = S > 0 ? a.nsid[j] : 0;
     validf[x] = a.validf[j];
     for (int r = 0; r < R; ++r) jalloc[r * jcap + x] = a.jalloc_in[r * J + j];
     qid[x] = a.qid[j];
@@ -482,26 +487,30 @@ __global__ void __launch_bounds__(CBLOCK, 1)
       over_col[tid] = over;
       qshare[tid] = share + qex[tid];
     }
-    // ---- the namespace fold: nonzero member terms in job order ----------
-    if (P > 0 && p > 0) {
-      if (tid < P) fcnt[tid] = 0;
+    // ---- the namespace fold: nonzero member terms in job order, a tile
+    // of 32 (namespace, dim) pairs at a time -----------------------------
+    for (int t0 = 0; P > 0 && p > 0 && t0 < P; t0 += PAIR_TILE) {
+      const int tp = min(PAIR_TILE, P - t0);
+      // the last tile's lists may still be read by other blocks
+      if (t0 > 0) cluster.sync();
+      if (tid < tp) fcnt[tid] = 0;
       __syncthreads();
       for (int k = 0; k < rounds; ++k) {
         const int x = tid + k * CBLOCK;
+        // the job's fold namespace, -1 when it is in no fold
+        const int fs = x < jn ? (nsid[x] >> 16) - 1 : -1;
         unsigned nz = 0u;
-        for (int t = 0; t < P; ++t) {
-          const int s = t / R, r = t % R;
-          const float term = x < jn && nsc[s * jcap + x] > 0.0f
-                                 ? jalloc[r * jcap + x]
-                                 : 0.0f;
+        for (int t = 0; t < tp; ++t) {
+          const int s = (t0 + t) / R, r = (t0 + t) % R;
+          const float term = fs == s ? jalloc[r * jcap + x] : 0.0f;
           if (term != 0.0f) nz |= 1u << t;
         }
-        for (int t = 0; t < P; ++t) {
+        for (int t = 0; t < tp; ++t) {
           const unsigned b = __ballot_sync(0xffffffffu, (nz >> t) & 1u);
           if (lane == 0) wcnt[t * CWARPS + warp] = __popc(b);
         }
         __syncthreads();
-        if (tid < P) {
+        if (tid < tp) {
           int run = fcnt[tid];
           for (int w = 0; w < CWARPS; ++w) {
             woff[tid * CWARPS + w] = run;
@@ -510,20 +519,20 @@ __global__ void __launch_bounds__(CBLOCK, 1)
           fcnt[tid] = run;
         }
         __syncthreads();
-        for (int t = 0; t < P; ++t) {
+        for (int t = 0; t < tp; ++t) {
           const bool bit = (nz >> t) & 1u;
           const unsigned b = __ballot_sync(0xffffffffu, bit);
           if (bit) {
             const int pos = woff[t * CWARPS + warp] +
                             __popc(b & ((1u << lane) - 1u));
-            fl[t * jcap + pos] = jalloc[(t % R) * jcap + x];
+            fl[t * jcap + pos] = jalloc[((t0 + t) % R) * jcap + x];
           }
         }
         __syncthreads();
       }
       cluster.sync();
       // every block folds the CB lists in block order, a warp a pair
-      for (int t = warp; t < P; t += CWARPS) {
+      for (int t = warp; t < tp; t += CWARPS) {
         const int n = lane < CB ? cluster.map_shared_rank(fcnt, lane)[t] : 0;
         int incl = n;
         for (int off = 1; off < 32; off <<= 1) {
@@ -555,18 +564,20 @@ __global__ void __launch_bounds__(CBLOCK, 1)
               acc = acc + __shfl_sync(0xffffffffu, v[u], k);
           }
         }
-        if (lane == 0) ns_alloc[t] = acc;
+        if (lane == 0) ns_alloc[t0 + t] = acc;
       }
+    }
+    if (P > 0 && p > 0) {
       __syncthreads();
-      if (tid < S) {
+      for (int s = tid; s < S; s += CBLOCK) {
         float share = 0.0f;
         for (int r = 0; r < R; ++r) {
           const float t = total[r];
           const float frac =
-              t > 0.0f ? ns_alloc[tid * R + r] / fmaxf(t, EPS_DIV) : 0.0f;
+              t > 0.0f ? ns_alloc[s * R + r] / fmaxf(t, EPS_DIV) : 0.0f;
           share = r == 0 ? frac : fmaxf(share, frac);
         }
-        ns_share[tid] = share / fmaxf(a.nsw[tid], 1.0f);
+        ns_share[s] = share / fmaxf(a.nsw[s], 1.0f);
       }
     }
     __syncthreads();
@@ -592,8 +603,8 @@ __global__ void __launch_bounds__(CBLOCK, 1)
       dk[(-KEY_READY - 1) * jcap + x] =
           (rdy0[x] + acount[x] >= minav[x] && minav[x] > 0) ? 1.0f : 0.0f;
       float nk = 0.0f;
-      for (int s = 0; s < S; ++s)
-        if (nsm[s * jcap + x] > 0.0f) nk = ns_share[s];
+      const int ks = (nsid[x] & 0xffff) - 1;
+      if (ks >= 0) nk = ns_share[ks];
       dk[(-KEY_NS - 1) * jcap + x] = nk;
       float js = INF;
       if (validf[x] > 0.0f) {
@@ -885,7 +896,7 @@ extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
   const int P = drf_ns ? S * R : 0;
   if (R < 1 || R > MAX_R || C < 1 || M < 1 || N < 1 || G < 0 || J < 1 ||
       Q < 1 || S < 0 || nkeys < 1 || nkeys > MAX_KEYS || CB < 1 ||
-      CB > MAX_CB || P > MAX_PAIRS || (J + CB - 1) / CB > JOB_BITS * CBLOCK)
+      CB > MAX_CB || S > MAX_NS || (J + CB - 1) / CB > JOB_BITS * CBLOCK)
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto I = [&](int i) { return static_cast<const int*>(ptrs[i]); };
@@ -903,8 +914,7 @@ extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
   a.hcols = F(P_HCOLS);
   a.qid = I(P_QID);
   a.qoh = F(P_QOH);
-  a.nsm = F(P_NSM);
-  a.nsc = F(P_NSC);
+  a.nsid = I(P_NSID);
   a.nsw = F(P_NSW);
   a.minav = I(P_MINAV);
   a.rdy0 = I(P_RDY0);

@@ -23,10 +23,19 @@ a mesh of the session's device (``parallel/sharding.py``): one pop and one
 attempt at a time through the shard-local candidate kernel, or, with
 ``wave_width`` W > 1, waves of W attempts through the wide one.
 
-Not carried yet (ROADMAP): incremental refresh, device-resident delta
-uploads, pipelined dispatch, a mesh over several cards, the CPU-oracle
-rung, metrics and trace spans, telemetry, and the preempt and reclaim
-passes.
+The steady cycle: ``reopen`` starts the next cycle on the same session and
+patches the packed snapshot from the jobs and nodes the last cycle (and
+``mark_dirty``) touched (``refresh_snapshot``), instead of a full repack.
+With conf ``delta_uploads`` (default true) and no mesh, the snapshot lives
+on the device across cycles (``ops/fused_io.DeltaKernel``): a cycle ships
+only the elements that changed, and an integrity digest checks the
+resident buffers against their host mirror.
+
+Not carried yet (ROADMAP): pipelined dispatch (depth k, speculation, an
+asynchronous pack), the CPU-oracle rung, warm-restart mirrors, chaos
+seams, metrics and trace spans (items 2b, 8 and 10); the mesh path's
+residency and a mesh over several cards (item 6c); telemetry; and the
+preempt and reclaim passes.
 """
 
 from __future__ import annotations
@@ -39,15 +48,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..api import ClusterInfo, PodGroupPhase, TaskStatus, gpu_request_of
+from ..api import (ClusterInfo, PodGroupPhase, QueueState, TaskStatus,
+                   gpu_request_of, is_allocated_status)
 from ..api.resource import Resource
 from ..arrays import pack, to_device
 from ..arrays.affinity import build_affinity
 from ..arrays.hierarchy import build_hierarchy
+from ..arrays.pack import queue_capability_row, queue_parent_depth
 from ..ops.allocate_scan import (MODE_ALLOCATED, AllocateConfig,
-                                 AllocateExtras, derive_batching,
-                                 make_allocate_cycle, unpack_decisions)
+                                 AllocateExtras, cycle_path,
+                                 derive_batching, make_allocate_cycle,
+                                 unpack_decisions)
 from ..ops.backfill import make_backfill_pass
+from ..ops.fused_io import ResidentState, delta_cycle_cached, tree_leaves
 from ..ops.enqueue import EnqueueConfig, make_enqueue_pass
 from .conf import SchedulerConfiguration, parse_conf
 
@@ -63,6 +76,38 @@ class BindIntent:
     gpu_index: int = -1  # shared-GPU card (AddGPUIndexPatch, pod_info.go:154)
 
 
+#: (cfg, shape signature, device) -> DeltaKernel: the device-resident
+#: delta path (conf delta_uploads, default on). Kernels hold no residency
+#: and are shared; each Session keeps its own ResidentState.
+_DELTA_CACHE: Dict[tuple, object] = {}
+
+
+@dataclasses.dataclass
+class PendingAllocate:
+    """A dispatched allocate cycle: the device tensor of its packed
+    decisions, read back by :meth:`Session.complete_allocate`, and what
+    the drain needs to check and apply them."""
+
+    packed: object              # device tensor (readback deferred)
+    cfg: AllocateConfig
+    T: int
+    J: int
+    #: host ms of deriving the cycle's inputs, and of the upload and the
+    #: cycle's host loop
+    extras_ms: float = 0.0
+    dispatch_ms: float = 0.0
+    #: the delta path's kernel and residency, and the argument tree the
+    #: cycle ran on (a recovery uploads it in full); None on the full path
+    kernel: object = None
+    state: object = None
+    tree: object = None
+    #: the changed-rows tail on the device (None: drain in full)
+    tail: object = None
+    #: ResidentState.dec_epoch at dispatch: another epoch at the drain
+    #: means a recovery cut the decisions chain, so the drain reads in full
+    dec_epoch: int = 0
+
+
 class Session:
     def __init__(self, cluster: ClusterInfo,
                  conf: Optional[SchedulerConfiguration] = None,
@@ -71,16 +116,23 @@ class Session:
         wall clock by default. ``device``: where the passes run — the card
         by default, ``"cpu"`` for the plain PyTorch versions of the
         kernels."""
-        from ..plugins.factory import build_plugin
         self.cluster = cluster
         self.conf = conf or parse_conf()
         self.now = now if now is not None else time.time()
         self.device = device
-        self.plugins = [build_plugin(opt) for tier in self.conf.tiers
-                        for opt in tier.plugins]
+        self._build_plugins()
+        # device residency of the delta path, id(DeltaKernel) ->
+        # ResidentState: survives reopen, so the buffers stay on the
+        # device across cycles; a fresh Session pays one full upload
+        self._resident: Dict[int, object] = {}
         self._reset_cycle_state()
         self.repack()
         self._open_plugins()
+
+    def _build_plugins(self) -> None:
+        from ..plugins.factory import build_plugin
+        self.plugins = [build_plugin(opt) for tier in self.conf.tiers
+                        for opt in tier.plugins]
 
     def _open_plugins(self) -> None:
         for p in self.plugins:
@@ -96,6 +148,34 @@ class Session:
         self.last_allocate = None
         self.last_backfill = None       # (task_node, placed) of the last one
         self.stats: Dict[str, float] = {}
+        # the jobs and nodes refresh_snapshot patches: apply records its
+        # touches, other mutators call mark_dirty. Kept across this reset,
+        # so a reopened session refreshes what the last cycle touched.
+        if not hasattr(self, "_dirty_jobs"):
+            self._dirty_jobs: set = set()
+            self._dirty_nodes: set = set()
+
+    def reopen(self, now: Optional[float] = None,
+               conf: Optional[SchedulerConfiguration] = None) -> bool:
+        """Start the next scheduling cycle on this session: drop the last
+        cycle's intents, patch the packed snapshot from the dirty jobs and
+        nodes (:meth:`refresh_snapshot`), and re-open the plugins. The
+        reference's cache is patched by informer handlers between cycles,
+        never rebuilt (event_handlers.go:43-740). Returns True when the
+        patch sufficed, False when refresh_snapshot repacked in full.
+        ``stats`` gains ``refresh`` and ``refresh_ms`` (the patch, or the
+        repack with its ``pack_ms``)."""
+        if conf is not None:
+            self.conf = conf
+        self.now = now if now is not None else time.time()
+        self._reset_cycle_state()
+        t0 = time.perf_counter()
+        refreshed = self.refresh_snapshot()
+        self.stats["refresh_ms"] = (time.perf_counter() - t0) * 1000
+        self.stats["refresh"] = refreshed
+        self._build_plugins()
+        self._open_plugins()
+        return refreshed
 
     # ------------------------------------------------------------- packing
     def repack(self) -> None:
@@ -119,8 +199,18 @@ class Session:
         # uid -> (job, task) readout index, built lazily on first use
         self._task_lookup_cache = None
         # packed-order (job, task) object pairs for _bulk_bind, built and
-        # alignment-verified once per pack
+        # alignment-verified once per pack, then kept valid by
+        # refresh_snapshot (a task-set change repacks)
         self._packed_objs_cache = None
+        # the jobs whose queue is known, for refresh_snapshot's queue sums
+        # (pack keeps the others out of them)
+        qk = np.zeros(J, bool)
+        for ji, uid in enumerate(self.maps.job_uids):
+            job = self.cluster.jobs.get(uid)
+            qk[ji] = job is not None and job.queue in self.maps.queue_index
+        self._queue_known = qk
+        self._dirty_jobs = set()
+        self._dirty_nodes = set()
         self._scale_allocatables()
 
     def _scale_allocatables(self) -> None:
@@ -177,6 +267,237 @@ class Session:
             if p.name == name:
                 return p
         return None
+
+    # -------------------------------------------------- incremental refresh
+    def mark_dirty(self, job_uid: Optional[str] = None,
+                   node_name: Optional[str] = None) -> None:
+        """Record an out-of-session mutation for refresh_snapshot."""
+        if job_uid is not None:
+            self._dirty_jobs.add(job_uid)
+        if node_name is not None:
+            self._dirty_nodes.add(node_name)
+
+    def refresh_snapshot(self) -> bool:
+        """Patch the packed snapshot in place for the recorded dirty
+        entities instead of re-packing the whole cluster — the steady-state
+        cycle path (the reference maintains its cache incrementally through
+        informer event handlers, event_handlers.go:43-740, and only
+        deep-copies at Snapshot; here the patch IS the snapshot update).
+
+        Exact only for status/placement/accounting churn on an unchanged
+        entity set: same nodes, same jobs, same per-job task uids, and no
+        task spec changes (selector/toleration/affinity rows are immutable
+        per the job-update webhook, webhooks/jobs.py). Anything else —
+        including any inter-pod affinity terms, whose live counts depend on
+        placements — falls back to a full repack. Returns True when the
+        incremental patch was applied.
+        """
+        dirty_jobs = self._dirty_jobs
+        dirty_nodes = self._dirty_nodes
+        self._dirty_jobs = set()
+        self._dirty_nodes = set()
+        maps = self.maps
+        scaled = any(c.name.lower() == "scaleallocatable"
+                     for c in self.conf.configurations)
+        if (self.affinity.has_terms
+                or scaled                       # node rows carry scaled
+                #                                 allocatable (session.go:448)
+                or len(self.cluster.jobs) != len(maps.job_uids)
+                or len(self.cluster.nodes) != len(maps.node_names)
+                or len(self.cluster.queues) != len(maps.queue_names)
+                or any(q not in maps.queue_index
+                       for q in self.cluster.queues)
+                or sorted(self.cluster.namespaces or {"default": None})
+                != maps.namespace_names
+                or any(u not in maps.job_index for u in dirty_jobs)
+                or any(n not in maps.node_index for n in dirty_nodes)):
+            self.repack()
+            return False
+        snap = self.snap
+        dims = maps.resource_names
+        tjob = np.asarray(snap.tasks.job)
+        tasks_a = snap.tasks
+        jobs_a = snap.jobs
+        nodes_arr = snap.nodes
+        M = jobs_a.task_table.shape[1]
+
+        def vec(res):
+            q = res.quantities
+            return [q.get(d, 0.0) for d in dims]
+
+        # ---- queue + namespace static rows (Q/S are small: re-encode) ----
+        # covers queue open/closed flips, weight edits, hierarchy
+        # annotation changes, and namespace weight changes without
+        # per-entity dirty tracking
+        queues_a = snap.queues
+        q_changed = False
+        open_flipped = []
+        parents, depths = queue_parent_depth(self.cluster, maps.queue_names)
+        for qi, name in enumerate(maps.queue_names):
+            q = self.cluster.queues[name]
+            hw = q.hierarchy_weight_values()
+            row = (np.float32(max(q.weight, 0)),
+                   queue_capability_row(q, dims),
+                   bool(q.reclaimable),
+                   q.state == QueueState.OPEN,
+                   np.int32(parents[qi]), np.int32(depths[qi]),
+                   np.float32(hw[-1] if hw else 1.0))
+            old = (queues_a.weight[qi], queues_a.capability[qi],
+                   bool(queues_a.reclaimable[qi]), bool(queues_a.open[qi]),
+                   queues_a.parent[qi], queues_a.depth[qi],
+                   queues_a.hier_weight[qi])
+            if (old[0] != row[0] or not np.array_equal(old[1], row[1])
+                    or old[2] != row[2] or old[3] != row[3]
+                    or old[4] != row[4] or old[5] != row[5]
+                    or old[6] != row[6]):
+                q_changed = True
+                if old[3] != row[3]:
+                    open_flipped.append(qi)
+                queues_a.weight[qi] = row[0]
+                queues_a.capability[qi] = row[1]
+                queues_a.reclaimable[qi] = row[2]
+                queues_a.open[qi] = row[3]
+                queues_a.parent[qi] = row[4]
+                queues_a.depth[qi] = row[5]
+                queues_a.hier_weight[qi] = row[6]
+        for si, name in enumerate(maps.namespace_names):
+            ns = self.cluster.namespaces.get(name)
+            snap.namespace_weight[si] = max(ns.weight if ns else 1, 1)
+        if q_changed:
+            # the hdrf tree rides the queue annotations
+            Q = np.asarray(queues_a.weight).shape[0]
+            J = np.asarray(jobs_a.valid).shape[0]
+            self.hierarchy = build_hierarchy(self.cluster, maps, Q, J)
+        ns_index = {n: i for i, n in enumerate(maps.namespace_names)}
+        if open_flipped:
+            # member jobs' schedulable depends on queue_open (pack j_sched):
+            # re-encode them like dirty jobs
+            jq = np.asarray(jobs_a.queue)
+            jvalid = np.asarray(jobs_a.valid)
+            for qi in open_flipped:
+                for ji in np.flatnonzero((jq == qi) & jvalid):
+                    dirty_jobs.add(maps.job_uids[int(ji)])
+
+        # ---- dirty task/job rows -----------------------------------------
+        for uid in dirty_jobs:
+            ji = maps.job_index[uid]
+            job = self.cluster.jobs.get(uid)
+            if job is None:
+                self.repack()
+                return False
+            tis = np.flatnonzero(tjob == ji)
+            if ([maps.task_uids[ti] for ti in tis]
+                    != list(job.tasks.keys())):
+                self.repack()       # task set changed: full rebuild
+                return False
+            # a watch-driven store may have replaced the TaskInfo objects
+            # behind unchanged uids: re-point the positional/uid caches so
+            # later binds mutate the live objects, not stale ones
+            if self._packed_objs_cache is not None:
+                for ti, task in zip(tis.tolist(), job.tasks.values()):
+                    self._packed_objs_cache[ti] = (job, task)
+            if self._task_lookup_cache is not None:
+                for task in job.tasks.values():
+                    self._task_lookup_cache[task.uid] = (job, task)
+            pending: list = []
+            req_sum = np.zeros(len(dims), np.float32)
+            for ti, task in zip(tis.tolist(), job.tasks.values()):
+                tasks_a.resreq[ti] = vec(task.resreq)
+                tasks_a.status[ti] = int(task.status)
+                tasks_a.priority[ti] = task.priority
+                tasks_a.node[ti] = maps.node_index.get(task.node_name, -1)
+                tasks_a.best_effort[ti] = task.best_effort
+                tasks_a.gpu_request[ti] = gpu_request_of(task.resreq)
+                tasks_a.preemptable[ti] = task.preemptable
+                if task.status == TaskStatus.PENDING:
+                    pending.append(ti)
+                if (task.status == TaskStatus.PENDING
+                        or is_allocated_status(TaskStatus(task.status))):
+                    req_sum += np.asarray(tasks_a.resreq[ti])
+            pending.sort(key=lambda ti: (-int(tasks_a.priority[ti]), ti))
+            if len(pending) > M:
+                self.repack()       # pending row outgrew the M bucket
+                return False
+            ready_num = job.ready_task_num()
+            jobs_a.min_available[ji] = job.min_available
+            jobs_a.queue[ji] = maps.queue_index.get(job.queue, 0)
+            self._queue_known[ji] = job.queue in maps.queue_index
+            jobs_a.namespace[ji] = ns_index.get(job.namespace, 0)
+            jobs_a.priority[ji] = job.priority
+            jobs_a.ready_num[ji] = ready_num
+            jobs_a.allocated[ji] = vec(job.allocated)
+            jobs_a.total_request[ji] = req_sum
+            jobs_a.min_resources[ji] = vec(job.min_resources)
+            jobs_a.task_table[ji] = -1
+            jobs_a.task_table[ji, :len(pending)] = pending
+            jobs_a.n_pending[ji] = len(pending)
+            gang_valid, _ = job.is_valid()
+            qi = maps.queue_index.get(job.queue)
+            queue_open = qi is not None and bool(snap.queues.open[qi])
+            pending_phase = job.pod_group_phase == PodGroupPhase.PENDING
+            jobs_a.pending_phase[ji] = pending_phase
+            jobs_a.inqueue[ji] = not pending_phase
+            jobs_a.schedulable[ji] = (gang_valid and queue_open
+                                      and not pending_phase)
+            jobs_a.preemptable[ji] = job.preemptable
+
+        # ---- dirty node rows ---------------------------------------------
+        for name in dirty_nodes:
+            ni = maps.node_index[name]
+            node = self.cluster.nodes.get(name)
+            if node is None:
+                self.repack()
+                return False
+            nodes_arr.idle[ni] = vec(node.idle)
+            nodes_arr.used[ni] = vec(node.used)
+            nodes_arr.releasing[ni] = vec(node.releasing)
+            nodes_arr.pipelined[ni] = vec(node.pipelined)
+            nodes_arr.allocatable[ni] = vec(node.allocatable)
+            nodes_arr.capability[ni] = vec(node.capability)
+            nodes_arr.pod_count[ni] = node.pod_count()
+            nodes_arr.max_pods[ni] = node.max_pods
+            nodes_arr.schedulable[ni] = (node.ready
+                                         and not node.unschedulable)
+            # always zero first (a node whose device set emptied must not
+            # keep stale rows — pack zeros them); a device set that outgrew
+            # the packed G bucket or a dev.id past it needs the wider bucket
+            # only a repack can size
+            nodes_arr.gpu_memory[ni] = 0.0
+            nodes_arr.gpu_used[ni] = 0.0
+            G = nodes_arr.gpu_memory.shape[1]
+            if node.gpu_devices:
+                if (len(node.gpu_devices) > G
+                        or any(dev.id >= G for dev in node.gpu_devices)):
+                    self.repack()
+                    return False
+                for dev in node.gpu_devices:
+                    nodes_arr.gpu_memory[ni, dev.id] = dev.memory
+                    nodes_arr.gpu_used[ni, dev.id] = dev.used_memory()
+
+        # ---- cluster capacity (pack.py cluster_capacity formula) ---------
+        if dirty_nodes:
+            nn = len(maps.node_names)
+            snap.cluster_capacity[:] = (
+                nodes_arr.allocatable[:nn].sum(axis=0) if nn
+                else np.zeros(len(dims), np.float32))
+
+        # ---- queue aggregates (proportion.OnSessionOpen sums) ------------
+        if dirty_jobs or q_changed:
+            jq = np.asarray(jobs_a.queue)
+            # pack excludes valid jobs whose queue is unknown from the
+            # aggregates (their j_queue defaults to 0); mirror via the
+            # queue-known mask recorded at repack
+            member = np.asarray(jobs_a.valid) & self._queue_known
+            alloc = np.where(member[:, None], jobs_a.allocated, 0.0)
+            req = np.where(member[:, None], jobs_a.total_request, 0.0)
+            inq = np.where((member & np.asarray(jobs_a.inqueue))[:, None],
+                           jobs_a.min_resources, 0.0)
+            for arr, src in ((snap.queues.allocated, alloc),
+                             (snap.queues.request, req),
+                             (snap.queues.inqueue_minres, inq)):
+                arr[:] = 0.0
+                np.add.at(arr, jq, src)
+        return True
 
     # ------------------------------------------------- pass composition
     def allocate_config(self) -> AllocateConfig:
@@ -369,19 +690,140 @@ class Session:
         return count
 
     def run_allocate(self):
-        """Upload the snapshot to the session's device, run the allocate
-        cycle, read the packed decisions back in one copy and apply them."""
+        """Upload the snapshot (in full, or the delta against the resident
+        buffers), run the allocate cycle, read the packed decisions back
+        and apply them: ``complete_allocate(dispatch_allocate())``."""
+        return self.complete_allocate(self.dispatch_allocate())
+
+    def dispatch_allocate(self) -> PendingAllocate:
+        """Upload and run the allocate cycle, without reading its packed
+        decisions back; :meth:`complete_allocate` drains the returned
+        pending. The cycle is a host loop with one small readback a round
+        (rounds, pops, attempts or waves), so dispatch runs that loop on
+        the device and stops before the final packed readback.
+
+        With conf ``delta_uploads`` (default true) and no mesh, the
+        snapshot's three group buffers stay on the device between cycles
+        and only the changed elements go up (``ops/fused_io``); with
+        ``sharding: true`` the mesh path uploads the whole snapshot, as
+        before (ROADMAP item 6c). ``stats``: ``path``
+        (``allocate_scan.cycle_path``), ``upload_bytes`` and
+        ``full_upload_bytes``, ``last_kind`` ("full", "delta"),
+        ``extras_ms`` and ``dispatch_ms``."""
         t0 = time.perf_counter()
         cfg, extras = self._derived_allocate_inputs()
-        snap_d = to_device(self.snap, self.device)
-        extras_d = to_device(extras, self.device)
-        result = make_allocate_cycle(cfg, mesh=self._sharding_mesh())(
-            snap_d, extras_d)
-        packed = result.packed_decisions().cpu().numpy()
-        self.stats["cycle_ms"] = (time.perf_counter() - t0) * 1000
-        T = self.snap.tasks.status.shape[0]
-        J = self.snap.jobs.valid.shape[0]
-        return self.apply_packed(packed, T, J)
+        extras_ms = (time.perf_counter() - t0) * 1000
+        t0 = time.perf_counter()
+        snap = self.snap
+        T = int(snap.tasks.status.shape[0])
+        J = int(snap.jobs.valid.shape[0])
+        mesh = self._sharding_mesh()
+        tree = (snap, extras)
+        pending = PendingAllocate(packed=None, cfg=cfg, T=T, J=J,
+                                  extras_ms=extras_ms, tree=tree)
+        if mesh is None and bool(getattr(self.conf, "delta_uploads", True)):
+            kernel = delta_cycle_cached(
+                make_allocate_cycle(cfg), tree, _DELTA_CACHE, self.device,
+                dec_len=3 * T + 3 * J, key_extra=cfg)
+            state = self._resident.setdefault(id(kernel), ResidentState())
+            pending.packed = kernel.run(state, tree)
+            pending.kernel, pending.state = kernel, state
+            pending.tail, pending.dec_epoch = state.last_tail, state.dec_epoch
+            upload, full, kind = (state.last_upload_bytes,
+                                  state.full_upload_bytes, state.last_kind)
+        else:
+            pending.packed = make_allocate_cycle(cfg, mesh=mesh)(
+                to_device(snap, self.device),
+                to_device(extras, self.device)).packed_decisions()
+            full = sum(np.asarray(x).nbytes for x in tree_leaves(tree))
+            upload, kind = full, "full"
+        pending.dispatch_ms = (time.perf_counter() - t0) * 1000
+        self.stats.update(path=cycle_path(cfg, snap, extras, mesh),
+                          upload_bytes=float(upload),
+                          full_upload_bytes=float(full), last_kind=kind,
+                          extras_ms=extras_ms,
+                          dispatch_ms=pending.dispatch_ms)
+        return pending
+
+    def complete_allocate(self, pending: PendingAllocate):
+        """Drain a dispatched cycle: read its packed decisions back (the
+        changed-rows tail where it can), check the resident buffers'
+        digest, recover on a mismatch or a failed readback
+        (:meth:`_readback_packed`), and apply the decisions. ``stats``:
+        ``cycle_ms`` (inputs, upload, the cycle and the readback),
+        ``drain_readback_bytes`` and ``drain_readback_rows``."""
+        t0 = time.perf_counter()
+        packed = self._readback_packed(pending)
+        self.stats["cycle_ms"] = (pending.extras_ms + pending.dispatch_ms
+                                  + (time.perf_counter() - t0) * 1000)
+        return self.apply_packed(packed, pending.T, pending.J)
+
+    def _readback_packed(self, pending: PendingAllocate) -> np.ndarray:
+        """The dispatched cycle's packed decisions on the host. On the
+        delta path the digest the cycle computed on the device must equal
+        the mirror's; the changed-rows tail, when the decisions chain
+        holds, patches the host mirror of the last drained decisions in
+        place of a full readback. A digest mismatch or a failed readback
+        recovers on the device (a full upload from the cycle's own tree
+        and a re-run, counted in ``stats["recoveries"]``); a recovery
+        that fails raises."""
+        kernel, state = pending.kernel, pending.state
+        if kernel is None:
+            packed = pending.packed.cpu().numpy()
+            self.stats["drain_readback_bytes"] = float(packed.nbytes)
+            self.stats["drain_readback_rows"] = float(packed.shape[0])
+            return packed
+        reason = packed = None
+        checked = False
+        mirror = state.dec_mirror
+        same_chain = pending.dec_epoch == state.dec_epoch
+        if (kernel.rb_cap and pending.tail is not None and same_chain
+                and mirror is not None and mirror.shape[0] == kernel.dec_len):
+            try:
+                tail = pending.tail.cpu().numpy()
+                dig, cnt, idx, vals = kernel.split_tail(tail)
+                if not np.array_equal(dig, kernel.mirror_digest(state)):
+                    reason = "digest"
+                else:
+                    checked = True
+                    if cnt <= kernel.rb_cap:
+                        packed = mirror.copy()
+                        packed[idx] = vals
+                        self.stats["drain_readback_bytes"] = float(
+                            tail.nbytes)
+                        self.stats["drain_readback_rows"] = float(cnt)
+            except RuntimeError as e:
+                reason = f"readback:{type(e).__name__}"
+        if packed is None and reason is None:
+            try:
+                full = pending.packed.cpu().numpy()
+            except RuntimeError as e:
+                reason = f"readback:{type(e).__name__}"
+            else:
+                packed, dig = kernel.split_digest(full)
+                if not checked and not np.array_equal(
+                        dig, kernel.mirror_digest(state)):
+                    reason, packed = "digest", None
+                else:
+                    self.stats["drain_readback_bytes"] = float(full.nbytes)
+                    self.stats["drain_readback_rows"] = float(full.shape[0])
+        if reason is None:
+            if kernel.rb_cap and same_chain:
+                # the next drain's base: a copy, not a view of the readback
+                state.dec_mirror = np.array(packed, np.int32)
+            return packed
+        t0 = time.perf_counter()
+        full = kernel.recover(state, pending.tree).cpu().numpy()
+        packed, dig = kernel.split_digest(full)
+        if not np.array_equal(dig, kernel.mirror_digest(state)):
+            raise RuntimeError("the resident buffers' digest differs from "
+                               "the mirror's after a full upload and re-run")
+        self.stats["recoveries"] = self.stats.get("recoveries", 0) + 1
+        self.stats["recovery_reason"] = reason
+        self.stats["recovery_ms"] = (time.perf_counter() - t0) * 1000
+        self.stats["drain_readback_bytes"] = float(full.nbytes)
+        self.stats["drain_readback_rows"] = float(full.shape[0])
+        return packed
 
     def apply_packed(self, packed: np.ndarray, T: int, J: int):
         """Decode a packed decision vector and apply it to this session."""
@@ -432,7 +874,10 @@ class Session:
                 job.update_task_status(task, TaskStatus.PENDING)
                 task.gpu_index = -1
                 self.bind_errors.append((task_uid, node_name, str(e)))
+                self._dirty_jobs.add(job.uid)
                 return
+            self._dirty_nodes.add(node_name)
+        self._dirty_jobs.add(job.uid)
         self.binds.append(BindIntent(task_uid, job.uid, node_name, gpu_index))
 
     def _bulk_bind(self, bind_idx, task_node, task_gpu) -> None:
@@ -536,6 +981,7 @@ class Session:
                               if node_sum[ni, k] > 0})
             node.used.add(delta)
             node.idle.sub_floored(delta)
+            self._dirty_nodes.add(node.name)
         job_uids = self.maps.job_uids
         for ji in touched_jobs:
             job = self.cluster.jobs.get(job_uids[int(ji)])
@@ -544,6 +990,7 @@ class Session:
             job.allocated.add(Resource({d: float(job_sum[ji, k])
                                         for k, d in enumerate(dims)
                                         if job_sum[ji, k] > 0}))
+            self._dirty_jobs.add(job.uid)
 
     def apply_allocate(self, result) -> None:
         task_node = np.asarray(result.task_node)

@@ -295,6 +295,47 @@ def _check_supported(cfg: AllocateConfig, mesh=None) -> None:
             "batch_rounds (derive_batching sets it) for dynamic keys")
 
 
+def dyn_refusal(cfg: AllocateConfig, snap, extras) -> Optional[str]:
+    """Why the dynamic-key placer's kernel does not take this snapshot's
+    shapes (more ordering keys than it keys on, or more jobs than its
+    shared memory holds: ``dyn_placer.refusal``, the check every launch
+    makes), or None. Read from shapes alone, before the cycle runs."""
+    nodes, jobs = snap.nodes, snap.jobs
+    N, R = nodes.idle.shape
+    J, M = jobs.task_table.shape
+    NH = 2 * extras.hierarchy.queue_path.shape[1] if cfg.enable_hdrf else 0
+    plan, NKS = dp.key_plan(cfg, NH)
+    ad = dict(aff=0, SK=0, ETA=0, SEL=0, A=0, B=0, PP=0)
+    if cfg.enable_pod_affinity:
+        afa = extras.affinity
+        ad = dict(aff=1, SK=afa.sk_domain.shape[0],
+                  ETA=afa.eta_domain.shape[0], SEL=afa.static_pref.shape[0],
+                  A=afa.task_aff_sk.shape[1], B=afa.task_anti_term.shape[1],
+                  PP=afa.task_pref_sk.shape[1])
+    S = extras.ns_share.shape[0] if cfg.drf_ns_order else 0
+    return dp.refusal(
+        N, J, dp.CLUSTER, len(plan), max(1, int(cfg.batch_jobs)), M, R,
+        nodes.gpu_memory.shape[1] if cfg.enable_gpu else 0,
+        extras.queue_deserved.shape[0], S, S * R, NKS, NH, ad["SK"],
+        round_placer.aff_list_ints(ad))
+
+
+def cycle_path(cfg: AllocateConfig, snap, extras, mesh=None) -> str:
+    """The path :func:`make_allocate_cycle` takes for this snapshot, from
+    its shapes: ``"mesh"`` under a node mesh, ``"round"`` (the static-key
+    round placer), ``"dyn"`` (the dynamic-key placer), or ``"dyn_mesh"``:
+    dynamic keys whose snapshot the dynamic-key kernel does not take
+    (:func:`dyn_refusal`), placed on the one-shard mesh path, one pop and
+    one attempt at a time through the shard-local candidate kernel. That
+    is where the reference goes when its VMEM estimate refuses its fused
+    kernel: its scan path, whose decisions the mesh path gives."""
+    if mesh is not None:
+        return "mesh"
+    if max(0, int(cfg.batch_rounds)) == 0:
+        return "round"
+    return "dyn" if dyn_refusal(cfg, snap, extras) is None else "dyn_mesh"
+
+
 def gather_slot_tables(tables, flat_ids):
     """The columns of a launch's slots from per-task tables [.., T], on
     the tables' device (the affinity term tables of the placers)."""
@@ -818,7 +859,12 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
     reference ignores them off its fused placers.
 
     Without a mesh the fused placers take whole job sections and ignore
-    ``wave_width``, as the reference's do (allocate_scan.py:623-627).
+    ``wave_width``, as the reference's do (allocate_scan.py:623-627). A
+    dynamic-key snapshot that the dynamic-key kernel does not take (J past
+    its job limit, or more ordering keys than it keys on) runs the mesh
+    path on one shard instead (:func:`cycle_path` ``"dyn_mesh"``), unless
+    ``dyn_placer`` is given: the choice is made from shapes before the
+    cycle, never from a launch's error, and runs no plain version.
     """
     if mesh is not None:
         cfg = normalize_wave(cfg)
@@ -906,7 +952,9 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
 
         # ---- loop state; scatters with no target land in a sentinel row
         # (T, J or Q) that is sliced off at the end, like JAX's mode="drop"
-        idle = nodes.idle.T.contiguous()
+        # a copy, never a view: the mesh path adds into it in place, and
+        # the resident buffers of the delta path hold nodes.idle
+        idle = nodes.idle.T.clone(memory_format=torch.contiguous_format)
         pipe = torch.zeros((R, N), dtype=f32, device=dev)
         pods = torch.zeros((1, N), dtype=f32, device=dev)
         gpux = torch.zeros((nodes.gpu_memory.shape[1], N), dtype=f32,
@@ -981,9 +1029,16 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
             keys += [ready_now.to(f32), job_share, jobs.creation_rank.to(f32)]
             return keys, hcols
 
-        if mesh is not None:
+        D = mesh.size if mesh is not None else 0
+        if (D == 0 and dyn and dyn_placer is None
+                and dyn_refusal(cfg, snap, extras) is not None):
+            # the one-shard mesh path, with the mesh path's supported set
+            from ..parallel.sharding import NodeMesh
+            _check_supported(cfg, NodeMesh((dev,)))
+            D = 1
+        if D:
             idle = _sharded_pops(
-                cfg, mesh.size, place_shard, place_wave, snap, extras,
+                normalize_wave(cfg), D, place_shard, place_wave, snap, extras,
                 node_env,
                 eligible, order_keys, jobs_min_req, dict(
                     idle=idle, pipe=pipe, pods=pods, gpux=gpux,

@@ -96,11 +96,11 @@ CWARPS = CBLOCK // 32
 #: STATIC_SHARED: a static_assert holds its declarations to it, and its
 #: launcher checks the built kernel against it)
 MAX_SHARED = 232448 - 4096
-#: rows of the kernel's dynamic key table, the most (namespace, dim) pairs
-#: its namespace fold takes, and the most jobs a thread keeps in its
+#: rows of the kernel's dynamic key table, the (namespace, dim) pairs of
+#: one tile of its namespace fold, and the most jobs a thread keeps in its
 #: eligibility bitmask
 N_DYN = 4
-MAX_PAIRS = 32
+PAIR_TILE = 32
 JOB_BITS = 32
 
 #: launches of the CUDA kernel since the count was last set to 0, and those
@@ -481,15 +481,17 @@ def plan_words(N: int, CB: int, C: int, M: int, R: int, G: int, Q: int,
     mode and card [C * M], the affinity totals [SK] and term lists, the
     queue allocations and deserved [Q, R], queue extra, gate and share
     [Q], the totals [R], the namespace allocations and shares [S, R + 1],
-    and the fold's warp counts, offsets [P, CWARPS] and list lengths [P].
-    Per job: the static key rows [NKS], hdrf columns [NH], queue one-hot
-    [Q], namespace rows [2S], validf, allocation [R], the dynamic key
-    table [N_DYN], the fold's lists [P] and 11 int rows."""
+    and one fold tile's warp counts, offsets [TP, CWARPS] and list
+    lengths [TP], TP = min(P, PAIR_TILE). Per job: the static key rows
+    [NKS], hdrf columns [NH], queue one-hot [Q], the namespace word,
+    validf, allocation [R], the dynamic key table [N_DYN], one fold
+    tile's lists [TP] and 11 int rows."""
     col = 2 * R + 1 + G
     cap = -(-N // CB)
+    TP = min(P, PAIR_TILE)
     fixed = (col * cap + M * (col + 1) + 3 * C * M + SK + list_ints
-             + 2 * Q * R + 3 * Q + R + S * (R + 1) + 2 * P * CWARPS + P)
-    per_job = NKS + NH + Q + 2 * S + 1 + R + N_DYN + P + 11
+             + 2 * Q * R + 3 * Q + R + S * (R + 1) + 2 * TP * CWARPS + TP)
+    per_job = NKS + NH + Q + 1 + 1 + R + N_DYN + TP + 11
     return fixed, per_job
 
 
@@ -580,22 +582,61 @@ def launch_plan(cfg, C: int, M: int, a: DynArgs, cb: Optional[int] = None,
         raise ValueError(f"the kernel takes clusters of 1..{MAX_CB} blocks, "
                          f"not {CB}")
     nkeys = len(key_plan(cfg, NH)[0] if plan is None else plan)
-    if nkeys > MAX_KEYS:
-        raise ValueError(f"{nkeys} ordering keys, over {MAX_KEYS}")
-    P = S * R if cfg.drf_ns_order else 0
-    if P > MAX_PAIRS:
-        raise ValueError(f"{S} namespaces x {R} dims are {P} fold pairs, "
-                         f"over {MAX_PAIRS}")
     ad = rp.aff_dims(a) if ad is None else ad
-    rest = (C, M, R, G, Q, S, P, a.skeys.shape[0], NH, ad["SK"],
-            rp.aff_list_ints(ad))
-    smem = shared_bytes(N, J, CB, *rest)
+    NKS, SK, list_ints = a.skeys.shape[0], ad["SK"], rp.aff_list_ints(ad)
+    P = S * R if cfg.drf_ns_order else 0
+    rest = (C, M, R, G, Q, S, P, NKS, NH, SK, list_ints)
+    why = refusal(N, J, CB, nkeys, *rest)
+    if why is not None:
+        raise ValueError(why)
+    return CB, shared_bytes(N, J, CB, *rest)
+
+
+def refusal(N: int, J: int, CB: int, nkeys: int, C: int, M: int, R: int,
+            G: int, Q: int, S: int, P: int, NKS: int, NH: int, SK: int = 0,
+            list_ints: int = 0) -> Optional[str]:
+    """Why the kernel does not take a launch of these shapes, where a
+    snapshot's size decides it: more ordering keys than MAX_KEYS, or J
+    past :func:`max_jobs`; None when it takes them. The allocate cycle
+    routes such a snapshot to the one-shard mesh path
+    (``allocate_scan.dyn_refusal``), as the reference leaves its fused
+    kernel for its scan path when the kernel's VMEM estimate does not fit
+    (volcano_tpu/ops/allocate_scan.py:567-605)."""
+    if nkeys > MAX_KEYS:
+        return f"{nkeys} ordering keys, over {MAX_KEYS}"
+    rest = (C, M, R, G, Q, S, P, NKS, NH, SK, list_ints)
     jmax = max_jobs(N, CB, *rest)
     if J > jmax:
-        raise ValueError(f"J={J} jobs need {smem} bytes of shared memory a "
-                         f"block at CB={CB}; the kernel takes J <= {jmax} "
-                         f"at these shapes")
-    return CB, smem
+        return (f"J={J} jobs need {shared_bytes(N, J, CB, *rest)} bytes of "
+                f"shared memory a block at CB={CB}; the kernel takes "
+                f"J <= {jmax} at these shapes")
+    return None
+
+
+#: the last namespace word derived (:func:`ns_word`): the one-hot rows it
+#: came from, their versions, and the word
+_ns_cache: tuple = (None, None, None, None)
+
+
+def ns_word(nsm: torch.Tensor, nsc: torch.Tensor) -> torch.Tensor:
+    """The kernel's namespace word of each job, i32 [1, J]: the key
+    namespace + 1 (the last row of ``nsm`` that holds the job; 0 for none)
+    in its low 16 bits, and the fold namespace + 1 (the last row of
+    ``nsc``) in its high bits. It carries one fold namespace a job, as the
+    cycle builds the rows (``nsc`` is ``nsm`` of the valid jobs). Derived
+    on the rows' device once for the tensors the cycle passes to every
+    launch (the same tensors, unchanged, give the cached word)."""
+    global _ns_cache
+    m, c, ver, word = _ns_cache
+    if m is nsm and c is nsc and ver == (nsm._version, nsc._version):
+        return word
+    ids = torch.arange(1, nsm.shape[0] + 1, dtype=torch.int32,
+                       device=nsm.device)[:, None]
+    key = torch.where(nsm > 0, ids, 0).amax(0)
+    fold = torch.where(nsc > 0, ids, 0).amax(0)
+    word = (key | (fold << 16)).to(torch.int32)[None, :].contiguous()
+    _ns_cache = (nsm, nsc, (nsm._version, nsc._version), word)
+    return word
 
 
 def dyn_place_cuda(cfg, C: int, KP: int, M: int, args,
@@ -629,6 +670,9 @@ def dyn_place_cuda(cfg, C: int, KP: int, M: int, args,
                                or stamps.shape != (N_STAMPS,)
                                or stamps.device != dev):
         raise ValueError(f"stamps: expected int64 [{N_STAMPS}] on {dev}")
+    if a.nsm is not None:
+        # the kernel reads one namespace word a job, not the one-hot rows
+        a = a._replace(nsm=ns_word(a.nsm, a.nsc), nsc=None)
     ptrs = (ctypes.c_void_p * N_PTRS)(*[
         t.data_ptr() if t is not None else None
         for t in list(a) + outs + [scratch, stamps]])

@@ -280,10 +280,36 @@ THREADS = 256
 #: scores and rows, the count and the ties (the launcher refuses a scratch
 #: smaller than its own count)
 PART_BYTES = 4 * (2 * 2 * MAX_C + 4)
+#: lists a merge step takes (csrc/shard_wave.cu GROUP), bytes of one list
+#: (List: C scores and rows, the count and the ties), and the dynamic
+#: shared memory the last block's merge levels may take: a block's
+#: 232,448 bytes on an H100 less 4,096 for the kernel's static lists
+GROUP = 8
+LIST_BYTES = 4 * (2 * MAX_C + 2)
+MAX_LEVEL_BYTES = 232448 - 4096
 #: the dtype of each field of :class:`WaveCandidates`
 FIELD_DTYPES = (torch.float32, torch.int32, torch.int32, torch.int32,
                 torch.int32, torch.float32, torch.bool, torch.int32,
                 torch.int32)
+
+
+def level_bytes(D: int, B: int) -> int:
+    """The last block's two buffers of lists (csrc/shard_wave.cu
+    level_bytes): the tree's first level, 2 D ceil(B / GROUP) lists, and
+    its second, 2 D ceil(B / GROUP^2)."""
+    g1 = -(-B // GROUP)
+    return LIST_BYTES * 2 * D * (g1 + -(-g1 // GROUP))
+
+
+def max_row_blocks(D: int) -> int:
+    """The most blocks B of a shard's column whose merge levels fit
+    :data:`MAX_LEVEL_BYTES` (about 2.9 M rows in one shard)."""
+    lo, hi = 1, 1 << 24
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if level_bytes(D, mid) <= MAX_LEVEL_BYTES \
+            else (lo, mid - 1)
+    return lo
 
 
 def grid_shape(D: int, NL: int, W: int):
@@ -384,6 +410,12 @@ class _Plan:
         G = a.gidle0.shape[0] if cfg.enable_gpu else 0
         NL = N // D
         B, _, _ = grid_shape(D, NL, W)
+        if level_bytes(D, B) > MAX_LEVEL_BYTES:
+            raise ValueError(
+                f"{NL} rows a shard need {level_bytes(D, B)} bytes of merge "
+                f"levels in the last block's shared memory, over "
+                f"{MAX_LEVEL_BYTES}: the kernel takes at most "
+                f"{max_row_blocks(D) * THREADS} rows a shard at D={D}")
         dev = a.idle.device
         ticket, part = _workspace((a.idle.get_device(), stream), dev, W,
                                   B * W * D)

@@ -24,7 +24,11 @@ from .api import ClusterInfo, PodAffinityTerm
 
 
 def _synthetic_cluster(n_nodes: int, n_jobs: int, tasks_per_job: int,
-                       seed: int = 0, api=None) -> ClusterInfo:
+                       seed: int = 0, api=None,
+                       namespaces: int = 0) -> ClusterInfo:
+    """``namespaces`` > 0 puts job j and its tasks in namespace
+    ``ns-{j % namespaces}`` (the same random draws), in place of
+    ``default``."""
     api = api or port_api
     rng = np.random.RandomState(seed)
     ci = api.ClusterInfo()
@@ -37,7 +41,8 @@ def _synthetic_cluster(n_nodes: int, n_jobs: int, tasks_per_job: int,
     ci.add_queue(api.QueueInfo("batch", weight=2))
     for j in range(n_jobs):
         queue = "default" if j % 2 == 0 else "batch"
-        job = api.JobInfo(f"default/job-{j:05d}", queue=queue,
+        ns = f"ns-{j % namespaces}" if namespaces else "default"
+        job = api.JobInfo(f"{ns}/job-{j:05d}", queue=queue, namespace=ns,
                           min_available=max(1, tasks_per_job // 2),
                           priority=int(rng.randint(3)),
                           creation_timestamp=float(j),
@@ -46,7 +51,8 @@ def _synthetic_cluster(n_nodes: int, n_jobs: int, tasks_per_job: int,
                           pod_group_phase=api.PodGroupPhase.INQUEUE)
         for t in range(tasks_per_job):
             job.add_task(api.TaskInfo(
-                uid=f"default/job-{j:05d}-{t}", name=f"job-{j:05d}-{t}",
+                uid=f"{ns}/job-{j:05d}-{t}", name=f"job-{j:05d}-{t}",
+                namespace=ns,
                 resreq=api.Resource.from_resource_list(
                     {"cpu": f"{rng.randint(1, 4) * 500}m", "memory": "1Gi"})))
         ci.add_job(job)
@@ -135,3 +141,33 @@ def affinity_scenario(n_nodes: int = 10000, n_jobs: int = 2500,
                     topology_key="zone", match_labels={"app": app},
                     weight=10)]
     return ci
+
+
+def steady_churn(cluster: ClusterInfo, rng, frac: float = 0.05, api=None):
+    """One cycle's churn of a steady training cluster, in place: of the
+    gangs whose tasks are all bound (Binding), ``frac`` complete (their
+    tasks Succeeded and off their nodes) and another ``frac`` go back to
+    Pending (a gang resubmitted), as ``tests/test_refresh.py`` resets one.
+    ``rng``: a ``numpy.random.RandomState``. Returns the touched job uids
+    and node names, for ``Session.mark_dirty``."""
+    api = api or port_api
+    bound = api.TaskStatus.BINDING
+    placed = sorted(uid for uid, job in cluster.jobs.items()
+                    if job.tasks and all(t.status == bound
+                                         for t in job.tasks.values()))
+    n = int(round(frac * len(placed)))
+    pick = [placed[i] for i in rng.permutation(len(placed))[:2 * n]]
+    nodes = set()
+    for k, uid in enumerate(pick):
+        status = (api.TaskStatus.SUCCEEDED if k < n
+                  else api.TaskStatus.PENDING)
+        job = cluster.jobs[uid]
+        for task in list(job.tasks.values()):
+            node = cluster.nodes.get(task.node_name)
+            if node is not None and task.uid in node.tasks:
+                node.remove_task(task)
+                nodes.add(node.name)
+            job.update_task_status(task, status)
+            task.node_name = ""
+        job.allocated = type(job.allocated)({})
+    return pick, sorted(nodes)
