@@ -204,7 +204,24 @@ Phases, each of which fails the run (exit code 1) when it fails:
    11's method), the same launches timed by CUDA events behind a spin
    kernel (``device_ms``'s way when no trace keeps a launch) and its
    phase split; kernel 3's entry of the kernels line carries the pair
-   tile and these times.
+   tile and these times;
+29. check N, a MIG-partitioned GPU cluster at 12 resource dims:
+   ``_synthetic_cluster(256, 160, 16, extended=10)`` (cpu, memory and ten
+   extended resources: whole GPUs, five MIG profiles, two hugepage sizes,
+   RDMA devices, ephemeral storage), past the 8 dims the kernels once
+   kept in registers. Four Sessions on it, each with its launch counts
+   set to 0 just before its cycle and read just after: gang + binpack
+   (kernel 1), the shipped conf's enqueue and allocate (``seg_fold``,
+   kernel 3), gang + binpack with ``sharding: true`` (kernel 4, one
+   shard) and with ``wave_width: 8`` on top (kernel 5). The first two
+   fingerprints must be the JAX Session's
+   (``scripts/check_n_targets.py``), the mesh runs the gang + binpack
+   one (the reference's sharded and wave paths give the unsharded
+   decisions), and the gang + binpack one also the port's numpy oracle's
+   (``Session.run_allocate_oracle``, on a copy of the cluster). Each of
+   the five kernels is held bitwise against its plain version on launches
+   recorded at R = 12 and timed there; the kernels line carries those
+   times as ``r12``.
 
 The expected fingerprints are the JAX package's scan path's (and, for A,
 B, D and the raw configuration-5 cycle, its oracle's too). Each phase's
@@ -250,6 +267,12 @@ CHECK_K = (2675, "8da50a76f2936639", "ff4864be716c903f", 16498, 512,
 #: the JAX Session's fingerprint, tasks placed and jobs ready under the
 #: shipped conf (env JAX_PLATFORMS=cpu python scripts/check_l_targets.py)
 CHECK_L = ((256, 160, 16), 40, ("33fdad6704feca1a", 2560, 160))
+#: check N: the cluster (nodes, gangs, tasks a gang), its extended
+#: resources, and the JAX Session's fingerprint, tasks placed and jobs ready
+#: under gang + binpack and under the shipped conf (env JAX_PLATFORMS=cpu
+#: python scripts/check_n_targets.py)
+CHECK_N = ((256, 160, 16), 10, {"static": ("31eb63c33ca4a012", 1313, 83),
+                                "shipped": ("95c88f1c827d1551", 721, 52)})
 #: churn a cycle (a share of the placed gangs completes, as many go back to
 #: Pending), its seed, and the churn cycles of check M; check L runs one
 CHURN = (0.05, 11)
@@ -1369,6 +1392,127 @@ class Clock:
         self.name, self.t0 = name, now
 
 
+def check_n(kernels):
+    """Phase 29 (check N); returns the kernels line with each kernel's R =
+    12 reading as ``r12``."""
+    import numpy as np
+
+    from volcano_tpu_torch.framework import Session
+    from volcano_tpu_torch.ops import dyn_placer as dp
+    from volcano_tpu_torch.ops import enqueue as enqueue_ops
+    from volcano_tpu_torch.ops import round_placer as rp
+    from volcano_tpu_torch.ops import seg_fold as sf
+    from volcano_tpu_torch.ops import shard_placer as sp
+    from volcano_tpu_torch.ops import shard_wave as sw
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    shape, extended, want = CHECK_N
+
+    def cluster():
+        return _synthetic_cluster(*shape, extended=extended)
+
+    def got(ssn):
+        res = ssn.last_allocate
+        return (fingerprint(res.task_node, res.task_mode),
+                int((res.task_mode > 0).sum()), int(res.job_ready.sum()))
+
+    out, r12 = {}, {}
+    # gang + binpack: kernel 1, and the port's oracle on a copy
+    ssn = Session(cluster(), gang_binpack_conf(), device="cuda")
+    R = int(ssn.snap.nodes.idle.shape[1])
+    assert R == 2 + extended, R
+    calls = record_launches(ssn, keep=3, stop_after=3)
+    err1 = compare_kernel_plain(calls)
+    rp.launches = 0
+    ssn.run_allocate()
+    out["static"] = dict(launches=rp.launches, path=ssn.stats["path"],
+                         cycle_ms=ssn.stats["cycle_ms"], got=got(ssn),
+                         max_abs_err=err1)
+    assert rp.launches > 0, "check N's static run launched no kernel 1"
+    assert out["static"]["got"] == want["static"], out["static"]
+    t0 = time.perf_counter()
+    oracle = Session(cluster(), gang_binpack_conf(), device="cuda")
+    oracle.run_allocate_oracle()
+    out["oracle"] = dict(got=got(oracle), binds=len(oracle.binds),
+                         seconds=time.perf_counter() - t0)
+    assert out["oracle"]["got"] == want["static"], out["oracle"]
+    assert len(oracle.binds) == len(ssn.binds)
+    r12["round_placer"] = time_kernel(calls[0])
+    # the shipped conf: enqueue's sums and kernel 3
+    ssn = Session(cluster(), shipped_conf(), device="cuda")
+    dyn_calls = record_launches(ssn, keep=3, stop_after=3, dyn=True)
+    err3 = compare_dyn_kernel_plain(dyn_calls)
+    zero_dyn_counts()
+    with SegFoldTap(enqueue_ops) as folds:
+        enqueued = ssn.run_enqueue()
+        ssn.run_allocate()
+    counts = dyn_counts()
+    fold_calls = folds.calls + seg_fold_calls(ssn, dyn_calls)
+    assert all(v.shape[1] == R for v, _, _ in fold_calls[:-2])
+    err_sf = compare_seg_fold_plain(fold_calls)
+    out["shipped"] = dict(counts, enqueued=enqueued,
+                          enqueue_folds=len(folds.calls),
+                          path=ssn.stats["path"],
+                          cycle_ms=ssn.stats["cycle_ms"], got=got(ssn),
+                          max_abs_err=err3, seg_fold_max_abs_err=err_sf)
+    assert counts["launches"] > 0 and counts["seg_fold_launches"] > 0
+    assert folds.calls, "check N's enqueue folded nothing"
+    assert out["shipped"]["got"] == want["shipped"], out["shipped"]
+    r12["dyn_placer"] = time_dyn_kernel(dyn_calls[0])
+    # the namespace fold's segments over seeded values at 12 dims (a term
+    # in every kept row), as the R = 2 reading of phase 11
+    r12["seg_fold"] = time_seg_fold(fold_calls[-2])
+    # gang + binpack on a one-shard mesh: kernel 4, then kernel 5 at W = 8
+    for name, width in (("mesh", 1), ("wave", 8)):
+        conf = sharded_conf()
+        conf.wave_width = width
+        ssn = Session(cluster(), conf, device="cuda")
+        if width == 1:
+            m_calls = record_shard_launches(ssn, keep=3, stop_after=3)
+            err = compare_shard_plain(m_calls)
+            zero_shard_counts()
+        else:
+            m_calls = record_wave_launches(ssn, keep=3, stop_after=3)
+            err = compare_wave_plain(m_calls)
+            zero_wave_counts()
+        ssn.run_allocate()
+        counts = shard_counts() if width == 1 else wave_counts()
+        out[name] = dict(counts, path=ssn.stats["path"],
+                         cycle_ms=ssn.stats["cycle_ms"], got=got(ssn),
+                         max_abs_err=err)
+        assert counts["launches"] > 0, f"check N's {name} run launched none"
+        assert out[name]["got"] == want["static"], out[name]
+        if width == 1:
+            r12["shard_candidates"] = time_shard_kernel(m_calls[0])
+        else:
+            assert counts["shard_candidates_launches"] == 0
+            r12["shard_wave"] = time_wave_kernel(m_calls[0])
+    log(json.dumps({"phase": "check_N", "resource_dims": R,
+                    "nodes": shape[0], "tasks": shape[1] * shape[2],
+                    **out}))
+    for name, t in r12.items():
+        log(json.dumps({"phase": "check_N_time", "kernel": name,
+                        "resource_dims": R, **t}))
+    errs = dict(round_placer=err1, dyn_placer=err3, seg_fold=err_sf,
+                shard_candidates=out["mesh"]["max_abs_err"],
+                shard_wave=out["wave"]["max_abs_err"])
+    launches = dict(round_placer=out["static"]["launches"],
+                    dyn_placer=out["shipped"]["launches"],
+                    seg_fold=out["shipped"]["seg_fold_launches"],
+                    shard_candidates=out["mesh"]["launches"],
+                    shard_wave=out["wave"]["launches"])
+    for k in kernels:
+        t = r12.get(k["name"])
+        if t is not None:
+            k["r12"] = {"launches": launches[k["name"]],
+                        "max_abs_err": errs[k["name"]], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
+                        "library_ms": t.get("library_ms")}
+    assert np.isfinite([e for e in errs.values()]).all()
+    return kernels
+
+
 def main():
     clock = Clock()
     # ---- 1. device ------------------------------------------------------
@@ -2338,6 +2482,13 @@ def main():
                 k.update(pair_tile=dp.PAIR_TILE, fold_pairs_ms=fold)
     except Exception as e:
         fail("28 (kernel 3's fold tiles)", e)
+
+    # ---- 29. check N: a MIG GPU cluster at 12 resource dims -------------
+    clock.lap("29 check_N")
+    try:
+        kernels = check_n(kernels)
+    except Exception as e:
+        fail("29 (check N, 12 resource dims)", e)
     clock.lap()
 
     log(json.dumps({"phase_seconds": clock.seconds}))

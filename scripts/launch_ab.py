@@ -2,8 +2,8 @@
 repository or in several taken in turns.
 
     python3 scripts/launch_ab.py [--trees PATH ...] [--rounds 1]
-        [--parts dyn planted wave seg_fold wave_window wave_profile
-                 fair_share_profile]
+        [--parts round dyn shard planted wave seg_fold wave_window
+                 wave_profile fair_share_profile]
         [--wave-window 500] [--wave-cycles 0] [--out PATH]
 
 Each round runs every tree of ``--trees`` (this checkout when none is
@@ -12,13 +12,23 @@ trees), each in a process of its own that imports that tree's
 ``volcano_tpu_torch`` and ``chip_smoke`` and builds its kernels there.
 A run measures the parts named by ``--parts`` (all by default):
 
+- ``round``: kernel 1 (the static-key round placer) at the north star's
+  first launch (``chip_smoke.py``'s phase 3 records it; phase 6 times
+  it), the tree's default cluster: CUDA events and the host clock around
+  50 launches as for ``dyn``, then its device time per launch in a
+  ``torch.profiler`` trace of 50 more;
 - ``dyn``: kernel 3 (the dynamic-key placer) at check B's first launch
   (the bench's configuration 3 under the shipped conf, as
   ``chip_smoke.py``'s phase 7 records it), the tree's default launch,
   after 3 warm-up launches: CUDA events around 50 launches (``events_ms``,
   a launch's pace: host-bound where the wrapper's host work outlasts the
   kernel) and the host clock around the 50 calls alone, with no
-  synchronisation inside (``host_ms``, the wrapper's host work);
+  synchronisation inside (``host_ms``, the wrapper's host work), then its
+  device time per launch in a ``torch.profiler`` trace of 50 more;
+- ``shard``: kernel 4 (the shard-local candidate search) at check G's
+  first attempt (the north star with ``sharding: true``, one shard of
+  10,240 rows, as ``chip_smoke.py``'s phase 16 records it): paced and
+  traced over 200 launches, as for ``wave``;
 - ``planted``: kernel 6's fixture launches as ``chip_smoke.py``'s phase 24
   times them: D = 4 launches of ``analysis.sharding.planted_double_cuda``
   on a 10,240 x 4 float32 block, 200 times, by CUDA events, against
@@ -85,25 +95,48 @@ def paced(fn, reps):
     return dict(events_ms=start.elapsed_time(end) / reps, host_ms=host_ms)
 
 
-def traced_ms(fn, name, reps):
+def traced_ms(fn, name, reps, traces=3):
     """Mean device ms of the launches of kernel ``name`` in a
     ``torch.profiler`` trace of ``reps`` calls of ``fn`` (the trace may
-    keep fewer launches than ran), and how many it kept."""
+    keep fewer launches than ran, and is taken again, ``traces`` times in
+    all, while it keeps none), and how many it kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [(e.time_range.end - e.time_range.start) / 1000
-           for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and name in e.name]
+    dev = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [(e.time_range.end - e.time_range.start) / 1000
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.name]
+        if dev:
+            break
     return dict(ms=sum(dev) / len(dev) if dev else None, traced=len(dev))
 
 
+def round_times(reps=50):
+    """Kernel 1 at the north star's first launch: paced, then traced."""
+    import chip_smoke
+    from volcano_tpu_torch.framework import Session
+    from volcano_tpu_torch.ops import round_placer as rp
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    ssn = Session(_synthetic_cluster(*chip_smoke.FULL),
+                  chip_smoke.gang_binpack_conf(), device="cuda")
+    cfg, K, M, args = chip_smoke.record_launches(ssn, keep=1,
+                                                 stop_after=1)[0]
+
+    def fn():
+        rp.round_place_cuda(cfg, K, M, args)
+    return dict(paced(fn, reps),
+                device=traced_ms(fn, "round_placer_kernel", reps))
+
+
 def dyn_launch_times(reps=50):
-    """events_ms and host_ms of kernel 3 at check B's first launch."""
+    """events_ms and host_ms of kernel 3 at check B's first launch, then
+    its device time."""
     import chip_smoke
     from volcano_tpu_torch.framework import Session
     from volcano_tpu_torch.ops import dyn_placer as dp
@@ -112,7 +145,28 @@ def dyn_launch_times(reps=50):
                   device="cuda")
     cfg, C, KP, M, args = chip_smoke.record_launches(
         ssn, keep=1, stop_after=1, dyn=True)[0]
-    return paced(lambda: dp.dyn_place_cuda(cfg, C, KP, M, args), reps)
+
+    def fn():
+        dp.dyn_place_cuda(cfg, C, KP, M, args)
+    return dict(paced(fn, reps),
+                device=traced_ms(fn, "dyn_placer_kernel", reps))
+
+
+def shard_times(reps=200):
+    """Kernel 4 at check G's first attempt: paced, then traced."""
+    import chip_smoke
+    from volcano_tpu_torch.framework import Session
+    from volcano_tpu_torch.ops import shard_placer as sp
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+    ssn = Session(_synthetic_cluster(*chip_smoke.FULL),
+                  chip_smoke.sharded_conf(), device="cuda")
+    cfg, D, args = chip_smoke.record_shard_launches(ssn, keep=1,
+                                                    stop_after=1)[0]
+
+    def fn():
+        sp.shard_candidates_cuda(cfg, D, args)
+    return dict(paced(fn, reps),
+                device=traced_ms(fn, "shard_cand_kernel", reps))
 
 
 def planted_times(D=4, n_nodes=10240, cols=4, reps=200):
@@ -277,8 +331,8 @@ def wave_profile(tree, window, cycles):
     return {k: prof.get(k) for k in keep}
 
 
-PARTS = ("dyn", "planted", "wave", "seg_fold", "wave_window",
-         "wave_profile", "fair_share_profile")
+PARTS = ("round", "dyn", "shard", "planted", "wave", "seg_fold",
+         "wave_window", "wave_profile", "fair_share_profile")
 
 
 def child(tree, parts, window, cycles):
@@ -289,7 +343,8 @@ def child(tree, parts, window, cycles):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    run = dict(dyn=dyn_launch_times, planted=planted_times, wave=wave_times,
+    run = dict(round=round_times, dyn=dyn_launch_times, shard=shard_times,
+               planted=planted_times, wave=wave_times,
                seg_fold=seg_fold_times,
                wave_window=lambda: wave_window(window),
                wave_profile=lambda: wave_profile(tree, window, cycles),

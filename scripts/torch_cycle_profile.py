@@ -266,10 +266,12 @@ def main():
         d[1] += (e - s) / 1000
     busy_ms = busy_us(intervals) / 1000
     # the 12 that took the most device time, and every kernel of the port
-    # (each in an anonymous namespace of its csrc/ source)
+    # (each in an anonymous namespace of its csrc/ source; a template's
+    # name begins with its return type)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     top = top[:12] + [kv for kv in top[12:]
-                      if kv[0].startswith("(anonymous namespace)::")]
+                      if kv[0].startswith(("(anonymous namespace)::",
+                                           "void (anonymous namespace)::"))]
     out = {
         "card": card, "cell": args.cell,
         "nodes": int(ssn.snap.nodes.valid.sum()),

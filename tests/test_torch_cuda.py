@@ -23,6 +23,7 @@ Where there is no card every test skips (decided inside the test).
 import dataclasses
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -422,13 +423,13 @@ def test_seg_fold_kernel_with_planted_values(A, D, num):
 
 @pytest.mark.cuda
 def test_seg_fold_kernel_at_its_limits():
-    """42 dims (a tile of 256 rows still fits) bitwise, 43 refused by the
-    wrapper; and 6 M (segment, dim) pairs, more than the 2 x 132 blocks'
-    shared memory keeps at once, on more blocks."""
+    """42 dims (a tile of 256 rows still fits, one chunk of dims) and 43
+    (two chunks) bitwise; and 6 M (segment, dim) pairs, more than the
+    2 x 132 blocks' shared memory keeps at once, on more blocks."""
     need_card()
     from volcano_tpu_torch.ops import seg_fold as sf
     g = torch.Generator().manual_seed(7)
-    for A, D, num in ((3000, sf.MAX_DIMS, 40), (3000, 2, 3_000_000)):
+    for A, D, num in ((3000, 42, 40), (3000, 43, 40), (3000, 2, 3_000_000)):
         vals = (torch.randn((A, D), generator=g)
                 * 10.0 ** torch.randint(-3, 8, (A, D), generator=g)).float()
         seg = torch.randint(-1, min(num, 50) + 1, (A,), generator=g,
@@ -439,9 +440,6 @@ def test_seg_fold_kernel_at_its_limits():
         got = sf.seg_fold_cuda(vals, seg, num)
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    with pytest.raises(ValueError, match="at most 42 dims"):
-        sf.seg_fold_cuda(torch.ones((8, 43), device="cuda"),
-                         torch.zeros(8, dtype=torch.int32, device="cuda"), 2)
 
 
 @pytest.mark.cuda
@@ -1095,44 +1093,6 @@ def test_a_snapshot_past_kernel_3s_jobs_takes_the_mesh_path():
     assert (res.task_mode > 0).sum() > 100
 
 
-def scalar_cluster(n_dims):
-    """A small cluster whose resources have ``n_dims`` dims: cpu, memory
-    and n_dims - 2 extended resources on every node and task, and one
-    Pending gang for enqueue."""
-    from volcano_tpu_torch import api
-    extra = {f"example.com/r{k:02d}": "4" for k in range(n_dims - 2)}
-    ci = api.ClusterInfo()
-    ci.add_queue(api.QueueInfo("default", weight=1))
-    for i in range(8):
-        ci.add_node(api.NodeInfo(f"n{i}", allocatable=api.Resource
-                                 .from_resource_list({"cpu": "16",
-                                                      "memory": "64Gi",
-                                                      "pods": "110",
-                                                      **extra})))
-    for j in range(4):
-        job = api.JobInfo(f"default/j{j}", queue="default", min_available=2,
-                          pod_group_phase=(api.PodGroupPhase.PENDING if j == 3
-                                           else api.PodGroupPhase.INQUEUE))
-        for t in range(2):
-            job.add_task(api.TaskInfo(
-                uid=f"default/j{j}-{t}", name=f"j{j}-{t}",
-                resreq=api.Resource.from_resource_list(
-                    {"cpu": "1", "memory": "1Gi",
-                     **{k: "1" for k in extra}})))
-        ci.add_job(job)
-    return ci
-
-
-def past_max_r():
-    """9 resource dims: kernel 1's, 3's, 4's and 5's MAX_R is 8."""
-    from volcano_tpu_torch.framework import Session, parse_conf
-    ssn = Session(scalar_cluster(rp.MAX_R + 1), parse_conf(
-        "actions: allocate\ntiers:\n- plugins:\n  - name: gang\n"
-        "  - name: binpack\n"), device="cuda")
-    assert ssn.snap.nodes.idle.shape[1] == rp.MAX_R + 1
-    ssn.run_allocate()
-
-
 def past_max_c():
     """A candidate depth of 9: the wave walk's depth is min(W, 8)
     (``wave_candidate_depth``), so no snapshot reaches it."""
@@ -1142,36 +1102,9 @@ def past_max_c():
                   sw.MAX_C + 1, t)
 
 
-def past_seg_fold_dims():
-    """43 resource dims in enqueue's sums (the shipped conf's enqueue)."""
-    from volcano_tpu_torch.framework import Session
-    from volcano_tpu_torch.ops import seg_fold as sf
-    ssn = Session(scalar_cluster(sf.MAX_DIMS + 1), shipped_conf(),
-                  device="cuda")
-    assert ssn.snap.nodes.idle.shape[1] == sf.MAX_DIMS + 1
-    ssn.run_enqueue()
-
-
-def past_wave_rows():
-    """One shard of rows just past what kernel 5's last block keeps in
-    shared memory; at the limit the launch runs."""
-    B = sw.max_row_blocks(1)
-    rows = B * sw.THREADS
-    cfg = AllocateConfig(**PLACER_WEIGHTS, enable_gpu=False)
-    for NL in (rows, rows + 1):
-        t = [torch.from_numpy(a).cuda()
-             for a in make_wave_inputs(0, D=1, W=1, NL=NL)]
-        sw.shard_wave(cfg, 1, 1, t)
-        torch.cuda.synchronize()
-
-
-#: the limits the card path keeps and the reference does not have (ROADMAP
-#: section 3): each builds a snapshot (or a launch) just past its limit
+#: the limit the card path keeps (ROADMAP section 3): a launch just past it
 LIMITS = {
-    "max_r": (past_max_r, r"1\.\.8 resource dims"),
     "max_c": (past_max_c, r"candidate depth is 1\.\.8"),
-    "seg_fold_dims": (past_seg_fold_dims, "at most 42 dims"),
-    "wave_rows": (past_wave_rows, "merge levels"),
 }
 
 
@@ -1182,6 +1115,205 @@ def test_the_card_path_refuses_past_its_limits(limit):
     build, match = LIMITS[limit]
     with pytest.raises(ValueError, match=match):
         build()
+
+
+def sparse_requests(req, R, seed, rows):
+    """Three of four of the extended dims' requests (dims 2.. R - 1, on
+    axis 0 when ``rows`` else axis 1) set to 0, the rest quartered, as
+    tasks ask for few of a cluster's extended resources: the tasks fit
+    somewhere, and the scores see both applicable and empty dims."""
+    rng = np.random.RandomState(seed)
+    req = req.copy()
+    ext = req[2:R] if rows else req[:, 2:R]
+    keep = rng.rand(*ext.shape) < 0.25
+    ext[...] = np.where(keep, ext * 0.25, 0).astype(req.dtype)
+    return req
+
+
+def wide_kernel_1(R):
+    cfg = AllocateConfig(enable_gpu=True, **PLACER_WEIGHTS)
+    placed = 0
+    for seed in (0, 1):
+        args = make_inputs(seed, R=R, gpu=True)
+        args[0] = sparse_requests(args[0], R, seed, rows=True)
+        t = [torch.from_numpy(a).cuda() for a in args]
+        want = rp.round_place_plain(cfg, 8, 4, t)
+        before = rp.launches
+        got = rp.round_place(cfg, 8, 4, t)
+        torch.cuda.synchronize()
+        assert rp.launches == before + 1
+        assert_same(got, want)
+        placed += int((want[0] >= 0).sum())
+    assert placed > 0
+
+
+def wide_kernel_3(R):
+    placed = 0
+    for seed in (0, 1):
+        flags, args = make_dyn_inputs(seed, R=R, drf_job_order=True,
+                                      drf_ns_order=True, S=3)
+        args = list(args)
+        args[0] = sparse_requests(args[0], R, seed, rows=True)
+        cfg = AllocateConfig(**PLACER_WEIGHTS, **flags)
+        for cb in (8, 16):
+            want = check_dyn_cluster(cfg, [torch.from_numpy(a).cuda()
+                                           for a in args], cb)
+        placed += int((want[0] >= 0).sum())
+    assert placed > 0
+
+
+def wide_kernel_4(R):
+    cfg = AllocateConfig(enable_gpu=False, **PLACER_WEIGHTS)
+    found = 0
+    for D in (1, 2, 4):
+        args = make_shard_inputs(D, D=D, R=R)
+        args[0] = sparse_requests(args[0], R, D, rows=False)
+        t = [torch.from_numpy(a).cuda() for a in args]
+        want = sp.shard_candidates_plain_combined(cfg, D, t)
+        before = sp.launches
+        got = sp.shard_candidates(cfg, D, t)
+        torch.cuda.synchronize()
+        assert sp.launches == before + 1
+        assert_same(got, want)
+        found += int(want[-1].sum())
+    assert found > 0
+
+
+def wide_kernel_5(R):
+    cfg = AllocateConfig(enable_gpu=False, **PLACER_WEIGHTS)
+    feasible = 0
+    for D, W in ((1, 8), (2, 4), (4, 16)):
+        C = wave_candidate_depth(W)
+        args = make_wave_inputs(D, D=D, W=W, R=R)
+        args[0] = sparse_requests(args[0], R, D, rows=True)
+        t = [torch.from_numpy(a).cuda() for a in args]
+        want = sw.shard_wave_plain_all(cfg, D, C, t)
+        before = sw.launches
+        got = sw.shard_wave(cfg, D, C, t)
+        torch.cuda.synchronize()
+        assert sw.launches == before + 1
+        assert_wave_same(got, want, C, t)
+        feasible += int(want.count.sum())
+    assert feasible > 0
+
+
+def wide_seg_fold(D):
+    from volcano_tpu_torch.ops import seg_fold as sf
+    g = torch.Generator().manual_seed(D)
+    for A, num in ((3000, 40), (5000, 4)):
+        vals = (torch.randn((A, D), generator=g)
+                * 10.0 ** torch.randint(-3, 8, (A, D), generator=g)).float()
+        vals[torch.rand((A, D), generator=g) < 0.3] = 0.0
+        seg = torch.randint(-1, num + 1, (A,), generator=g,
+                            dtype=torch.int32)
+        vals, seg = vals.cuda(), seg.cuda()
+        want = sf.seg_fold_plain(vals, seg, num)
+        before = sf.launches
+        got = sf.seg_fold_cuda(vals, seg, num)
+        torch.cuda.synchronize()
+        assert sf.launches == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+#: one shard's rows past which kernel 5's last block kept its merge levels
+#: in shared memory alone (2 D (ceil(B / 8) + ceil(B / 64)) lists of 72
+#: bytes over 228,352 at D = 1)
+OLD_WAVE_ROWS = 2_883_584
+
+
+def wave_rows(NL):
+    """One shard of NL rows, the merge levels in the launch plan's scratch
+    of device memory: bitwise the plain version's lists."""
+    cfg = AllocateConfig(enable_gpu=False, **PLACER_WEIGHTS)
+    B, _, _ = sw.grid_shape(1, NL, 8)
+    assert not sw.levels_shared(1, B)
+    t = [torch.from_numpy(a).cuda()
+         for a in make_wave_inputs(0, D=1, W=8, NL=NL)]
+    want = sw.shard_wave_plain_all(cfg, 1, 8, t)
+    before = sw.launches
+    got = sw.shard_wave(cfg, 1, 8, t)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1
+    assert_wave_same(got, want, 8, t)
+    assert int(want.count.sum()) > 0
+
+
+#: what the reference takes and the card path refused before: kernels 1,
+#: 3, 4 and 5 past 8 resource dims, seg_fold past 42 dims, kernel 5 past
+#: the rows a shard its last block kept in shared memory
+WIDE = dict(
+    [(f"kernel_{k}_r{R}", (fn, R)) for k, fn in (
+        (1, wide_kernel_1), (3, wide_kernel_3), (4, wide_kernel_4),
+        (5, wide_kernel_5)) for R in (9, 12, 64)]
+    + [(f"seg_fold_d{D}", (wide_seg_fold, D)) for D in (43, 64, 128)]
+    + [("wave_rows_past", (wave_rows, OLD_WAVE_ROWS + 1)),
+       ("wave_rows_twice", (wave_rows, 2 * OLD_WAVE_ROWS))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_the_card_path_takes_what_the_reference_takes(case):
+    need_card()
+    fn, arg = WIDE[case]
+    fn(arg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conf", ["static", "shipped"])
+def test_sessions_past_8_and_42_dims_run_on_the_card(conf):
+    """A Session of 64 resource dims on the card (kernels 1 and 3 at R =
+    64; enqueue's and drf's folds over 64 dims) gives the decisions of
+    the same Session on the CPU."""
+    need_card()
+    from volcano_tpu_torch.framework import Session, parse_conf
+    from volcano_tpu_torch.synthetic import scalar_cluster
+    text = ("actions: allocate\ntiers:\n- plugins:\n  - name: gang\n"
+            "  - name: binpack\n")
+    outs = []
+    for dev in ("cuda", "cpu"):
+        ssn = Session(scalar_cluster(64), parse_conf(text) if conf ==
+                      "static" else shipped_conf(), device=dev)
+        assert ssn.snap.nodes.idle.shape[1] == 64
+        if conf == "shipped":
+            ssn.run_enqueue()
+        ssn.run_allocate()
+        r = ssn.last_allocate
+        outs.append((r.task_node.tolist(), r.task_mode.tolist(),
+                     sorted(b.task_uid for b in ssn.binds)))
+    assert outs[0] == outs[1] and outs[0][2]
+
+
+@pytest.mark.cuda
+def test_a_static_key_snapshot_past_kernel_1s_slice_takes_the_mesh_path():
+    """7,200 nodes of 64 resource dims: a block's slice of kernel 1's node
+    state is over its shared memory at 16 blocks. The Session's cycle takes
+    the one-shard mesh path (kernel 4, no kernel-1 launch), chosen before
+    the cycle, and gives the decisions of the fused cycle run through the
+    plain round placer on the CPU."""
+    need_card()
+    from volcano_tpu_torch.arrays import to_device
+    from volcano_tpu_torch.framework import Session, parse_conf
+    from volcano_tpu_torch.ops import allocate_scan as tas
+    from volcano_tpu_torch.synthetic import scalar_cluster
+    ssn = Session(scalar_cluster(64, n_nodes=7200, n_jobs=24), parse_conf(
+        "actions: allocate\ntiers:\n- plugins:\n  - name: gang\n"
+        "  - name: binpack\n"), device="cuda")
+    cfg, extras = ssn._derived_allocate_inputs()
+    assert cfg.batch_rounds == 0
+    assert tas.cycle_path(cfg, ssn.snap, extras) == "round_mesh"
+    assert "shared memory" in tas.round_refusal(cfg, ssn.snap, extras)
+    plain = tas.make_allocate_cycle(cfg, placer=rp.round_place_plain)(
+        to_device(ssn.snap, "cpu"), to_device(extras, "cpu"))
+    rp.launches = sp.launches = 0
+    ssn.run_allocate()
+    assert ssn.stats["path"] == "round_mesh"
+    assert rp.launches == 0 and sp.launches > 0
+    res = ssn.last_allocate
+    for f in ("task_node", "task_mode", "task_gpu", "job_ready",
+              "job_pipelined"):
+        want = getattr(plain, f).cpu().numpy()
+        assert (getattr(res, f) == want).all(), f
+    assert (res.task_mode > 0).sum() > 10
 
 
 @pytest.mark.cuda

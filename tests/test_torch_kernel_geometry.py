@@ -82,6 +82,50 @@ def test_shared_bytes_fit_at_the_checked_shapes():
                            rp.aff_list_ints(d)) < rp.MAX_SHARED // 8
 
 
+def snapshot_shapes(N, R, M, G=0, J=64):
+    """A stand-in snapshot with the shapes ``round_refusal`` and
+    ``cycle_path`` read: node rows and resource dims, a job table of M
+    slots, G GPU cards a node."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        nodes=SimpleNamespace(idle=torch.empty(N, R),
+                              gpu_memory=torch.empty(N, G)),
+        jobs=SimpleNamespace(task_table=torch.empty(J, M)))
+
+
+@pytest.mark.parametrize("R", [2, 12, 64])
+def test_static_keys_past_kernel_1s_slice_take_round_mesh(R):
+    """Static keys take the round placer while a block's slice of the node
+    state fits its shared memory, and the one-shard mesh path
+    (``"round_mesh"``) from the first node count past it, read from
+    shapes by the function the launch raises with."""
+    from volcano_tpu_torch.ops import allocate_scan as tas
+    cfg = AllocateConfig(binpack_weight=1.0)
+    M = 16
+    col = 2 * R + 1
+    cap = (rp.MAX_SHARED // 4 - M * (col + 1) - 3 * M) // col
+    N = cap * rp.CLUSTER
+    assert rp.refusal(N, rp.CLUSTER, M, R, 0) is None
+    assert rp.refusal(N + 1, rp.CLUSTER, M, R, 0) is not None
+    assert tas.cycle_path(cfg, snapshot_shapes(N, R, M), None) == "round"
+    assert tas.cycle_path(cfg, snapshot_shapes(N + 1, R, M), None) \
+        == "round_mesh"
+    assert "shared memory" in tas.round_refusal(
+        cfg, snapshot_shapes(N + 1, R, M), None)
+    # the north star's 10,240 nodes fit at R = 2 and 12, not at R = 64
+    assert (tas.cycle_path(cfg, snapshot_shapes(10240, R, M), None)
+            == "round") == (R <= 12)
+
+
+def test_kernel_1_launch_raises_the_refusal_from_shapes():
+    """A launch whose slice is over MAX_SHARED raises the refusal's words
+    before it reaches the card: a CPU tensor never gets there, so read
+    the check the wrapper makes."""
+    why = rp.refusal(10240, 16, 16, 64, 0)
+    assert why is not None and f"over the {rp.MAX_SHARED}" in why
+    assert rp.refusal(10240, 16, 16, 2, 0) is None
+
+
 def test_cluster_launch_shape_is_checked_before_the_card():
     """A CPU tensor never reaches the launcher; the module's cluster is
     one the kernel takes."""
@@ -326,7 +370,7 @@ def test_wave_output_buffer_layout():
     assert nbytes == at
     assert sw.output_layout(1, 1, 1)[1] == 8 * 8 + 4
     assert sw.PART_BYTES == 4 * (2 * 2 * sw.MAX_C + 4) == 144
-    assert sw.N_PTRS == len(sw.WaveArgs._fields) - 2 + 2
+    assert sw.N_PTRS == len(sw.WaveArgs._fields) - 2 + 3
     assert sw.NODE_ARGS == sw.WaveArgs._fields[2:]
     assert sw.FIELD_DTYPES == tuple(dt for dt, _ in want)
 
@@ -335,22 +379,46 @@ def test_wave_output_buffer_layout():
 def test_wave_launch_pointers_follow_the_launcher_slots(gpu):
     """The launcher's pointer array holds the node-axis fields in
     WaveArgs's order, a null pointer for each GPU entry the arguments do
-    not carry, then the scratch; its length is N_PTRS."""
+    not carry, then the scratch (the merge levels' null where they fit
+    shared memory); its length is N_PTRS."""
     cfg = AllocateConfig(enable_gpu=gpu, **PLACER_WEIGHTS)
     t = [torch.from_numpy(x) for x in make_wave_inputs(0, D=2, W=4,
                                                        gpu=gpu)]
     a = sw.unpack_args(cfg, t)
-    part, ticket = torch.zeros(4), torch.zeros(2)
-    got = sw.launch_pointers(a, part, ticket)
-    assert len(got) == sw.N_PTRS
+    part, ticket, levels = torch.zeros(4), torch.zeros(2), torch.zeros(3)
     want = [getattr(a, f) for f in sw.NODE_ARGS]
     assert [x is None for x in want] == [
         not gpu and f in ("gidle0", "gpux") for f in sw.NODE_ARGS]
-    assert list(got) == [x.data_ptr() if x is not None else None
-                         for x in want] + [part.data_ptr(),
-                                           ticket.data_ptr()]
-    assert [p for p in got[:-2] if p is not None] == [
+    node = [x.data_ptr() if x is not None else None for x in want]
+    for lv in (None, levels):
+        got = sw.launch_pointers(a, part, ticket, lv)
+        assert len(got) == sw.N_PTRS
+        assert list(got) == node + [part.data_ptr(), ticket.data_ptr(),
+                                    lv.data_ptr() if lv is not None
+                                    else None]
+    assert [p for p in got[:-3] if p is not None] == [
         x.data_ptr() for x in t[2:]]
+
+
+#: one shard's rows at which the last block's merge levels (2 D (ceil(B /
+#: 8) + ceil(B / 64)) lists of 72 bytes, B = ceil(rows / 256)) outgrow
+#: what shared memory holds (the kernel kept them there alone before)
+OLD_WAVE_ROWS = 2_883_584
+
+
+@pytest.mark.parametrize("NL,shared", [
+    (10240, True), (OLD_WAVE_ROWS, True), (OLD_WAVE_ROWS + 1, False),
+    (2 * OLD_WAVE_ROWS, False)])
+def test_wave_levels_leave_shared_memory_past_its_size(NL, shared):
+    """The launcher's rule: the merge levels stay in shared memory up to
+    the most rows a shard they fit, and past it go to a scratch of W x
+    level_bytes; no row count is refused."""
+    B, _, _ = sw.grid_shape(1, NL, 8)
+    assert sw.levels_shared(1, B) == shared
+    assert (sw.level_bytes(1, B) <= sw.MAX_LEVEL_BYTES) == shared
+    g1 = -(-B // sw.GROUP)
+    assert sw.level_bytes(1, B) == sw.LIST_BYTES * 2 * (g1 + -(-g1 // 8))
+    assert not hasattr(sw, "max_row_blocks")
 
 
 @pytest.mark.parametrize("D,W,C", [(1, 8, 8), (4, 16, 8), (2, 3, 3)])

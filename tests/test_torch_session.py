@@ -180,8 +180,9 @@ def test_port_imports_without_jax():
     ``actions/``, ``ops/enqueue.py`` and ``ops/backfill.py`` among them),
     and a session runs, with ``jax`` and ``volcano_tpu`` blocked; with
     ``sharding: true`` too, and with ``wave_width: 8`` on top; and the
-    enqueue, allocate, backfill actions and the planted sharding check
-    run."""
+    enqueue, allocate, backfill actions, the planted sharding check and
+    ``run_allocate_oracle`` (``runtime/cpu_reference.py``) on a cluster
+    of 12 resource dims run."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'volcano_tpu'):\n"
@@ -230,7 +231,15 @@ def test_port_imports_without_jax():
         "x, out, rec, rows = planted_gather(2, 32, 4, 'cpu')\n"
         "assert torch.equal(out, x * 2)\n"
         "assert pallas_block_findings(rec, 32, rows, 'planted')\n"
+        "orc = Session(_synthetic_cluster(16, 8, 4, extended=10),\n"
+        "              SchedulerConfiguration(tiers=[Tier([\n"
+        "                  PluginOption('gang'), PluginOption('binpack')])]),\n"
+        "              device='cpu')\n"
+        "orc.run_allocate_oracle()\n"
+        "assert orc.binds and orc.stats['cpu_oracle'] == 1.0\n"
         "for m in ('volcano_tpu_torch.parallel.sharding',\n"
+        "          'volcano_tpu_torch.runtime',\n"
+        "          'volcano_tpu_torch.runtime.cpu_reference',\n"
         "          'volcano_tpu_torch.ops.fused_io',\n"
         "          'volcano_tpu_torch.ops.shard_placer',\n"
         "          'volcano_tpu_torch.ops.shard_wave',\n"

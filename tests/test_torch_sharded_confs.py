@@ -162,3 +162,38 @@ def test_a_snapshot_kernel_3_refuses_takes_the_one_shard_mesh(
         s, e).packed_decisions().numpy()
     assert dp.pops > 0
     np.testing.assert_array_equal(plain, fused)
+
+
+def test_a_snapshot_kernel_1_refuses_takes_the_one_shard_mesh(monkeypatch):
+    """A static-key snapshot whose node slice the round placer's kernel
+    does not hold (here its shared memory is lowered, as more resource
+    dims or nodes would meet it) takes the one-shard mesh path, chosen
+    from shapes before the cycle: no round-placer launch, pops through
+    the shard-local candidate search, and the fused path's decisions,
+    which are the JAX scan path's. A placer given by the caller is never
+    routed; with pod affinity on, the route raises as the mesh path
+    does."""
+    from volcano_tpu_torch.ops import round_placer as rp
+    from volcano_tpu_torch.ops import shard_placer as sp
+    cfg, snap, extras = sharded_inputs("gang_binpack_raw")
+    pcfg = port_cfg(cfg)
+    assert pcfg.batch_rounds == 0
+    s, e = port_inputs(snap, extras)
+    assert tas.cycle_path(pcfg, s, e) == "round"
+    fused = tas.make_allocate_cycle(pcfg)(s, e).packed_decisions().numpy()
+    monkeypatch.setattr(rp, "MAX_SHARED", 0)
+    assert tas.cycle_path(pcfg, s, e) == "round_mesh"
+    assert re.search("over the 0 a block", tas.round_refusal(pcfg, s, e))
+    calls = []
+    monkeypatch.setattr(rp, "round_place", lambda *a: calls.append(a))
+    sp.pops = 0
+    got = tas.make_allocate_cycle(pcfg)(s, e).packed_decisions().numpy()
+    assert calls == [] and sp.pops > 0
+    np.testing.assert_array_equal(got, fused)
+    np.testing.assert_array_equal(got, jax_scan_packed("gang_binpack_raw"))
+    plain = tas.make_allocate_cycle(pcfg, placer=rp.round_place_plain)(
+        s, e).packed_decisions().numpy()
+    np.testing.assert_array_equal(plain, fused)
+    aff = dataclasses.replace(pcfg, enable_pod_affinity=True)
+    with pytest.raises(NotImplementedError, match="6d"):
+        tas.make_allocate_cycle(aff)(s, e)

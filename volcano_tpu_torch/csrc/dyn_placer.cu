@@ -315,7 +315,8 @@ __device__ __forceinline__ int better_block(const float* tup, int nkeys,
 }
 
 // One block a multiprocessor: the registers of 512 threads may reach 128
-// each.
+// each. WIDE: built for R > REG_R resource dims (placement.cuh).
+template <bool WIDE>
 __global__ void __launch_bounds__(CBLOCK, 1)
     dyn_placer_kernel(const __grid_constant__ Args a) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -738,9 +739,9 @@ __global__ void __launch_bounds__(CBLOCK, 1)
       const bool can_run = a.tidok[s] > 0 && !s_stopped && !s_broke;
       const bool active = can_run && a.nbe[s] > 0;
       Pick pk{-1, -1, false, false};
-      Task t;
+      Task<WIDE> t;
       if (active) {
-        t = load_task(a.slots, e, s);
+        t = load_task<WIDE>(a.slots, e, s);
         if (aff)
           cluster_aff_eval(cluster, ae, N, s, as, aff_red, lo, hi,
                            &slots[xc++ & 1]);
@@ -809,28 +810,41 @@ __global__ void __launch_bounds__(CBLOCK, 1)
         for (int s = slo; s < shi; ++s)
           if (slot_mode[s] == MODE_ALLOCATED) slot_mode[s] = MODE_PIPELINED;
       }
-      // committed resources of this pop, added in slot order
-      float commit_col[MAX_R];
-      for (int r = 0; r < R; ++r) commit_col[r] = 0.0f;
-      for (int s = slo; s < shi; ++s)
-        if (slot_mode[s] != MODE_NONE)
-          for (int r = 0; r < R; ++r)
-            commit_col[r] = commit_col[r] + a.slots.resreq[r * CM + s];
-      if (jstar / jcap == rank) {
-        const int x = jstar - jlo;
+      // committed resources of this pop, added in slot order: a register
+      // a dim (narrow), or a dim at a time (WIDE: each dim's sum is its
+      // own chain, so the order of the dims does not matter)
+      const bool owner = jstar / jcap == rank;
+      const int x = jstar - jlo;
+      const int q = a.qid[jstar];
+      auto add_commit = [&](int r, float c) {
+        if (owner) jalloc[r * jcap + x] = jalloc[r * jcap + x] + c;
+        if (q >= 0 && q < Q) qalloc[q * R + r] = qalloc[q * R + r] + c;
+      };
+      if constexpr (WIDE) {
+        for (int r = 0; r < R; ++r) {
+          float c = 0.0f;
+          for (int s = slo; s < shi; ++s)
+            if (slot_mode[s] != MODE_NONE)
+              c = c + a.slots.resreq[r * CM + s];
+          add_commit(r, c);
+        }
+      } else {
+        float commit_col[REG_R];
+        for (int r = 0; r < R; ++r) commit_col[r] = 0.0f;
+        for (int s = slo; s < shi; ++s)
+          if (slot_mode[s] != MODE_NONE)
+            for (int r = 0; r < R; ++r)
+              commit_col[r] = commit_col[r] + a.slots.resreq[r * CM + s];
+        for (int r = 0; r < R; ++r) add_commit(r, commit_col[r]);
+      }
+      if (owner) {
         done[x] = s_stopped ? 0 : 1;
         popped[x] = 1;
         jready[x] = (ready && keep) ? 1 : 0;
         jpipe[x] = (pipelined && keep) ? 1 : 0;
         cursor[x] = cursor[x] + s_nadv;
         if (keep) acount[x] = acount[x] + s_nalloc;
-        for (int r = 0; r < R; ++r)
-          jalloc[r * jcap + x] = jalloc[r * jcap + x] + commit_col[r];
       }
-      const int q = a.qid[jstar];
-      if (q >= 0 && q < Q)
-        for (int r = 0; r < R; ++r)
-          qalloc[q * R + r] = qalloc[q * R + r] + commit_col[r];
       if (keep && s_nalloc + s_npipe > 0) kept_any = 1;
       if (s_nalloc > 0 || pipelined || ready) prog = 1;
       pops += 1;
@@ -894,7 +908,7 @@ extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
             S = dims[D_S], nkeys = dims[D_NKEYS], has_aff = dims[D_AFF],
             CB = dims[D_CB], drf_ns = dims[D_DRF_NS];
   const int P = drf_ns ? S * R : 0;
-  if (R < 1 || R > MAX_R || C < 1 || M < 1 || N < 1 || G < 0 || J < 1 ||
+  if (R < 1 || C < 1 || M < 1 || N < 1 || G < 0 || J < 1 ||
       Q < 1 || S < 0 || nkeys < 1 || nkeys > MAX_KEYS || CB < 1 ||
       CB > MAX_CB || S > MAX_NS || (J + CB - 1) / CB > JOB_BITS * CBLOCK)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -994,7 +1008,10 @@ extern "C" int dyn_placer_launch(void* const* ptrs, const int* dims,
   }
   const Plan pl = make_plan(N, J, CB, C * M, M, R, G, Q, S, P, a.NKS, a.NH,
                             a.SK, a.list_ints);
-  return launch_cluster(dyn_placer_kernel, CB,
-                        static_cast<size_t>(pl.words) * 4, STATIC_SHARED,
-                        static_cast<cudaStream_t>(stream), a);
+  const size_t smem = static_cast<size_t>(pl.words) * 4;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return R > REG_R ? launch_cluster(dyn_placer_kernel<true>, CB, smem,
+                                    STATIC_SHARED, st, a)
+                   : launch_cluster(dyn_placer_kernel<false>, CB, smem,
+                                    STATIC_SHARED, st, a);
 }

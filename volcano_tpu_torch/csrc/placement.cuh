@@ -59,6 +59,16 @@
 // fast math, so no multiply-add is contracted and division and sqrt are
 // IEEE; every sum over R folds in index order from 0; every constant is
 // rounded from the double the reference writes, as JAX rounds it.
+//
+// Resource dims: R has no bound here. Each kernel is built twice, for
+// R <= REG_R (WIDE = false: a task's request and a node's allocatable and
+// used columns in registers, one slot a dim) and for R > REG_R (WIDE =
+// true: each dim read where it is used, from device or shared memory, so
+// the registers do not grow with R); the launchers pick by R. Both fold
+// the same operations in the same order, so they give the same bits; the
+// balanced score's second pass recomputes each dim's fraction from the
+// same operands instead of keeping it. Only a kernel's shared-memory plan
+// bounds R (its node slice and saved columns are 2R + 1 + G words a node).
 
 #pragma once
 
@@ -77,7 +87,8 @@ constexpr int WARPS = 32;
 constexpr int CBLOCK = 512;
 constexpr int CWARPS = CBLOCK / 32;
 constexpr int MAX_CB = 16;
-constexpr int MAX_R = 8;
+// resource dims the narrow instantiations keep in registers
+constexpr int REG_R = 8;
 constexpr int MODE_NONE = 0;
 constexpr int MODE_ALLOCATED = 1;
 constexpr int MODE_PIPELINED = 2;
@@ -136,18 +147,44 @@ struct SlotEnv {
   int S;
 };
 
+// A task's request over the R dims: in registers (narrow) ...
+template <bool WIDE>
+struct ReqRow {
+  float v[REG_R];
+  __device__ __forceinline__ void load(const float* p, int stride, int R) {
+    for (int r = 0; r < R; ++r) v[r] = p[r * stride];
+  }
+  __device__ __forceinline__ float operator[](int r) const { return v[r]; }
+};
+
+// ... or read in place, dim r at p[r * stride] (WIDE)
+template <>
+struct ReqRow<true> {
+  const float* p;
+  int stride;
+  __device__ __forceinline__ void load(const float* q, int s, int) {
+    p = q;
+    stride = s;
+  }
+  __device__ __forceinline__ float operator[](int r) const {
+    return p[r * stride];
+  }
+};
+
 // one slot's scalars, read by every thread
+template <bool WIDE>
 struct Task {
-  float rr[MAX_R];
+  ReqRow<WIDE> rr;
   float gr;
   int tmpl, grp, voln, pref;
   bool volok, rev;
 };
 
-__device__ __forceinline__ Task load_task(const SlotEnv& se, const NodeEnv& e,
-                                          int s) {
-  Task t;
-  for (int r = 0; r < e.R; ++r) t.rr[r] = se.resreq[r * se.S + s];
+template <bool WIDE>
+__device__ __forceinline__ Task<WIDE> load_task(const SlotEnv& se,
+                                                const NodeEnv& e, int s) {
+  Task<WIDE> t;
+  t.rr.load(se.resreq + s, se.S, e.R);
   t.gr = e.G > 0 ? se.gpu_req[s] : 0.0f;
   t.tmpl = se.tmpl[s];
   t.grp = se.grp[s];
@@ -162,25 +199,55 @@ __device__ __forceinline__ float clip01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
+// Node i's allocatable and used (allocatable - idle) of each dim: in
+// registers (narrow) ...
+template <bool WIDE>
+struct NodeCols {
+  float a[REG_R], u[REG_R];
+  __device__ __forceinline__ NodeCols(const NodeEnv& e, const LiveView& lv,
+                                      int i) {
+    for (int r = 0; r < e.R; ++r) {
+      a[r] = e.alloc[r * e.N + i];
+      u[r] = a[r] - lv.idle[lv.k(r, i)];
+    }
+  }
+  __device__ __forceinline__ float alloc(int r) const { return a[r]; }
+  __device__ __forceinline__ float used(int r) const { return u[r]; }
+};
+
+// ... or computed where used, by the same operations (WIDE)
+template <>
+struct NodeCols<true> {
+  const NodeEnv& e;
+  const LiveView& lv;
+  int i;
+  __device__ __forceinline__ NodeCols(const NodeEnv& e_, const LiveView& lv_,
+                                      int i_)
+      : e(e_), lv(lv_), i(i_) {}
+  __device__ __forceinline__ float alloc(int r) const {
+    return e.alloc[r * e.N + i];
+  }
+  __device__ __forceinline__ float used(int r) const {
+    return alloc(r) - lv.idle[lv.k(r, i)];
+  }
+};
+
 // pallas_place._dyn_score for node i, in the reference's operation order
+template <bool WIDE>
 __device__ float dyn_score(const NodeEnv& e, const LiveView& lv, int i,
-                          const float* rr) {
+                          const ReqRow<WIDE>& rr) {
   const float EPS_DIV = static_cast<float>(1e-9);
   const float OVER = static_cast<float>(1.0 + 1e-6);
-  const int N = e.N, R = e.R;
-  float alloc[MAX_R], used[MAX_R];
-  for (int r = 0; r < R; ++r) {
-    alloc[r] = e.alloc[r * N + i];
-    used[r] = alloc[r] - lv.idle[lv.k(r, i)];
-  }
+  const int R = e.R;
+  const NodeCols<WIDE> nc(e, lv, i);
   float score = 0.0f;
   if (e.w_bin != 0.0f) {
     float wsum = 0.0f, fsum = 0.0f;
     bool over = false;
     for (int r = 0; r < R; ++r) {
-      const bool app = rr[r] > 0.0f && alloc[r] > 0.0f;
+      const bool app = rr[r] > 0.0f && nc.alloc(r) > 0.0f;
       const float frac =
-          app ? (used[r] + rr[r]) / fmaxf(alloc[r], EPS_DIV) : 0.0f;
+          app ? (nc.used(r) + rr[r]) / fmaxf(nc.alloc(r), EPS_DIV) : 0.0f;
       over = over || frac > OVER;
       const float w = app ? 1.0f : 0.0f;
       wsum = wsum + w;
@@ -194,9 +261,9 @@ __device__ float dyn_score(const NodeEnv& e, const LiveView& lv, int i,
     int n = 0;
     float s = 0.0f;
     for (int r = 0; r < R; ++r) {
-      const float cap = fmaxf(alloc[r], EPS_DIV);
-      const float free_frac = ((alloc[r] - used[r]) - rr[r]) / cap;
-      const bool counted = alloc[r] > 0.0f;
+      const float cap = fmaxf(nc.alloc(r), EPS_DIV);
+      const float free_frac = ((nc.alloc(r) - nc.used(r)) - rr[r]) / cap;
+      const bool counted = nc.alloc(r) > 0.0f;
       n += counted ? 1 : 0;
       s = s + clip01(free_frac) * (counted ? 1.0f : 0.0f);
     }
@@ -207,9 +274,9 @@ __device__ float dyn_score(const NodeEnv& e, const LiveView& lv, int i,
     int n = 0;
     float s = 0.0f;
     for (int r = 0; r < R; ++r) {
-      const float cap = fmaxf(alloc[r], EPS_DIV);
-      const float used_frac = (used[r] + rr[r]) / cap;
-      const bool counted = alloc[r] > 0.0f;
+      const float cap = fmaxf(nc.alloc(r), EPS_DIV);
+      const float used_frac = (nc.used(r) + rr[r]) / cap;
+      const bool counted = nc.alloc(r) > 0.0f;
       n += counted ? 1 : 0;
       s = s + clip01(used_frac) * (counted ? 1.0f : 0.0f);
     }
@@ -217,21 +284,37 @@ __device__ float dyn_score(const NodeEnv& e, const LiveView& lv, int i,
     score = score + e.w_most * ((s / static_cast<float>(n)) * 100.0f);
   }
   if (e.w_bal != 0.0f) {
-    float frac[MAX_R], counted[MAX_R];
+    // two passes in index order: the mean, then the variance about it;
+    // the narrow build keeps each dim's fraction, the wide one recomputes it
+    auto frac_of = [&](int r) {
+      return clip01((nc.used(r) + rr[r]) / fmaxf(nc.alloc(r), EPS_DIV));
+    };
+    auto counted_of = [&](int r) { return nc.alloc(r) > 0.0f ? 1.0f : 0.0f; };
+    float frac[WIDE ? 1 : REG_R], counted[WIDE ? 1 : REG_R];
     float nsum = 0.0f, fsum = 0.0f;
     for (int r = 0; r < R; ++r) {
-      const float cap = fmaxf(alloc[r], EPS_DIV);
-      frac[r] = clip01((used[r] + rr[r]) / cap);
-      counted[r] = alloc[r] > 0.0f ? 1.0f : 0.0f;
-      nsum = nsum + counted[r];
-      fsum = fsum + frac[r] * counted[r];
+      const float f = frac_of(r), c = counted_of(r);
+      if constexpr (!WIDE) {
+        frac[r] = f;
+        counted[r] = c;
+      }
+      nsum = nsum + c;
+      fsum = fsum + f * c;
     }
     const float n = fmaxf(nsum, 1.0f);
     const float mean = fsum / n;
     float vsum = 0.0f;
     for (int r = 0; r < R; ++r) {
-      const float d = frac[r] - mean;
-      vsum = vsum + (d * d) * counted[r];
+      float f, c;
+      if constexpr (WIDE) {
+        f = frac_of(r);
+        c = counted_of(r);
+      } else {
+        f = frac[r];
+        c = counted[r];
+      }
+      const float d = f - mean;
+      vsum = vsum + (d * d) * c;
     }
     const float var = vsum / n;
     score = score + (e.w_bal * (1.0f - sqrtf(var))) * 100.0f;
@@ -494,9 +577,10 @@ struct NodeEval {
 // With `ae` (pod affinity on), after the affinity pass: its mask joins
 // both views and weight * the normalised preferred score joins the score,
 // last.
+template <bool WIDE>
 __device__ __forceinline__ NodeEval node_eval(const NodeEnv& e,
                                               const LiveView& lv,
-                                              const Task& t, bool is_tgt,
+                                              const Task<WIDE>& t, bool is_tgt,
                                               int i, const AffEnv* ae,
                                               const AffShared* as) {
   const float EPS_FIT = static_cast<float>(1e-5);
@@ -526,7 +610,7 @@ __device__ __forceinline__ NodeEval node_eval(const NodeEnv& e,
   if (ae != nullptr) shared = shared && ae->ok[i] > 0.0f;
   NodeEval ne{shared && fit_now, shared && fit_fut, NEG};
   if (ne.now || ne.fut) {
-    float sc = dyn_score(e, lv, i, t.rr);
+    float sc = dyn_score<WIDE>(e, lv, i, t.rr);
     sc = sc + e.tscore[t.tmpl * N + i];
     sc = sc + (e.nascore[t.tmpl * N + i] + (t.rev ? e.bonus[i] : 0.0f));
     sc = sc + ((t.pref >= 0 && i == t.pref) ? 100.0f : 0.0f);
@@ -542,8 +626,9 @@ __device__ __forceinline__ NodeEval node_eval(const NodeEnv& e,
 // Every thread's running best of nodes lo + t, lo + t + step, ... below
 // hi, reduced over each warp to its lane 0: per view the highest masked
 // score, the lowest index at it, and whether any node is feasible.
+template <bool WIDE>
 __device__ __forceinline__ void pick_rows(const NodeEnv& e, const LiveView& lv,
-                                          const Task& t, bool is_tgt, int lo,
+                                          const Task<WIDE>& t, bool is_tgt, int lo,
                                           int hi, int step, const AffEnv* ae,
                                           const AffShared* as, float* best,
                                           int* bidx, bool* found) {
@@ -626,8 +711,9 @@ __device__ __forceinline__ ClusterSlot exchange_pick(cg::cluster_group& cluster,
 // (kernels 1 and 3): this block evaluates its nodes [lo, hi) from its slice of the
 // live state (`lv`), then the cluster exchanges the blocks' partials
 // through `slot`. The pick is valid in thread 0 only.
+template <bool WIDE>
 __device__ Pick cluster_pick(cg::cluster_group& cluster, const NodeEnv& e,
-                             const LiveView& lv, const Task& t, bool is_tgt,
+                             const LiveView& lv, const Task<WIDE>& t, bool is_tgt,
                              PickShared& ps, int lo, int hi, ClusterSlot* slot,
                              const AffEnv* ae = nullptr,
                              const AffShared* as = nullptr) {
@@ -702,10 +788,12 @@ __device__ void cluster_aff_eval(cg::cluster_group& cluster,
 // ---- the shard-local kernels (shard_candidates.cu, shard_wave.cu) --------
 
 // One task of a shard-local attempt, read from device memory: element k of
-// the request column `req` and of the task column `task` (pref, tmpl, grp,
-// voln, volok, rev: shard_placer.TASK_FIELDS) lies at k * stride.
+// the request column `req` lies at k * rstride (R dims, then the GPU
+// request), element k of the task column `task` (pref, tmpl, grp, voln,
+// volok, rev: shard_placer.TASK_FIELDS) at k * tstride.
+template <bool WIDE>
 struct ShardTask {
-  float rr[MAX_R];
+  ReqRow<WIDE> rr;
   float gr, grm;  // the GPU request, and it less EPS_FIT
   int pref, grp, voln;
   bool volok, rev, is_tgt;
@@ -715,15 +803,15 @@ struct ShardTask {
   const float* orrow;  // its OR group's row of orfeas (row 0 without one)
 };
 
-__device__ __forceinline__ ShardTask load_shard_task(const NodeEnv& e,
-                                                     const float* req,
-                                                     const int* task,
-                                                     int stride, bool is_tgt) {
+template <bool WIDE>
+__device__ __forceinline__ ShardTask<WIDE> load_shard_task(
+    const NodeEnv& e, const float* req, int rstride, const int* task,
+    int tstride, bool is_tgt) {
   const float EPS_FIT = static_cast<float>(1e-5);
-  const int N = e.N;
-  ShardTask t;
-  for (int r = 0; r < e.R; ++r) t.rr[r] = req[r * stride];
-  t.gr = e.G > 0 ? req[e.R * stride] : 0.0f;
+  const int N = e.N, stride = tstride;
+  ShardTask<WIDE> t;
+  t.rr.load(req, rstride, e.R);
+  t.gr = e.G > 0 ? req[e.R * rstride] : 0.0f;
   t.grm = t.gr - EPS_FIT;
   t.pref = task[0];
   const int tmpl = task[stride];
@@ -748,10 +836,11 @@ struct RowEval {
 // _shard_wave_kernel before their picks (shard_placer.row_eval), in the
 // reference's order. The future view uses the scan association
 // ((idle + releasing) - pipelined) - pipe_extra.
+template <bool WIDE>
 __device__ __forceinline__ RowEval shard_row(const NodeEnv& e,
                                              const float* rel,
                                              const float* pip,
-                                             const ShardTask& t, int i) {
+                                             const ShardTask<WIDE>& t, int i) {
   const float EPS_FIT = static_cast<float>(1e-5);
   const int N = e.N;
   // static feasibility: the node_ok conjunction of the scan branch
@@ -778,7 +867,7 @@ __device__ __forceinline__ RowEval shard_row(const NodeEnv& e,
     shared = shared && ok;
   }
   // the reference's float32 addition order
-  float score = dyn_score(e, global_view(e), i, t.rr);
+  float score = dyn_score<WIDE>(e, global_view(e), i, t.rr);
   score = score + t.tsrow[i];
   score = score + (t.narow[i] + (t.rev ? e.bonus[i] : 0.0f));
   score = score + ((t.pref >= 0 && i == t.pref) ? 100.0f : 0.0f);
@@ -816,7 +905,8 @@ struct SaveArea {
 // Thread 0 only: take the task from `node` (idle when do_alloc, else the
 // pipelined extra), after saving the node's column in save slot `sv`.
 // Returns the charged GPU card or -1.
-__device__ int commit(const NodeEnv& e, const LiveView& lv, const Task& t,
+template <bool WIDE>
+__device__ int commit(const NodeEnv& e, const LiveView& lv, const Task<WIDE>& t,
                       int node, bool do_alloc, const SaveArea& save, int sv) {
   const float EPS_FIT = static_cast<float>(1e-5);
   const int N = e.N, R = e.R, G = e.G;

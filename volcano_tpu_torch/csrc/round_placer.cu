@@ -120,6 +120,8 @@ inline size_t smem_words(int cap, int M, int R, int G, int SK,
   return col * cap + M * (col + 1) + 3 * M + SK + list_ints;
 }
 
+// WIDE: built for R > REG_R resource dims (placement.cuh)
+template <bool WIDE>
 __global__ void __launch_bounds__(CBLOCK)
     round_placer_kernel(const __grid_constant__ Args a) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -197,7 +199,7 @@ __global__ void __launch_bounds__(CBLOCK)
       const bool active =
           a.active[s] > 0 && sec_act && !sec_stopped && !sec_broke;
       if (active) {
-        const Task t = load_task(a.slots, e, s);
+        const Task<WIDE> t = load_task<WIDE>(a.slots, e, s);
         if (aff)
           cluster_aff_eval(cluster, ae, N, s, as, aff_red, lo, hi,
                            &slots[xc++ & 1]);
@@ -306,8 +308,7 @@ extern "C" int round_placer_launch(void* const* ptrs, const int* dims,
                                    const float* weights, void* stream) {
   const int K = dims[D_K], M = dims[D_M], N = dims[D_N], R = dims[D_R],
             G = dims[D_G], has_aff = dims[D_AFF], CB = dims[D_CB];
-  if (R < 1 || R > MAX_R || K < 1 || M < 1 || N < 1 || G < 0 || CB < 1 ||
-      CB > MAX_CB)
+  if (R < 1 || K < 1 || M < 1 || N < 1 || G < 0 || CB < 1 || CB > MAX_CB)
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto I = [&](int i) { return static_cast<const int*>(ptrs[i]); };
@@ -360,8 +361,11 @@ extern "C" int round_placer_launch(void* const* ptrs, const int* dims,
   }
   const int cap = (N + CB - 1) / CB;
   const size_t smem = smem_words(cap, M, R, G, SK, list_ints) * 4;
-  return launch_cluster(round_placer_kernel, CB, smem, STATIC_SHARED,
-                        static_cast<cudaStream_t>(stream), a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return R > REG_R ? launch_cluster(round_placer_kernel<true>, CB, smem,
+                                    STATIC_SHARED, st, a)
+                   : launch_cluster(round_placer_kernel<false>, CB, smem,
+                                    STATIC_SHARED, st, a);
 }
 
 // `iters` cluster exchanges of CB blocks (exchange_probe_kernel); `out`

@@ -23,7 +23,11 @@
 // and more again where a block's run would outgrow its shared memory (past
 // about 21,000 pairs a block at 2 dims); each block reads the rows once,
 // tile by tile, for all its pairs, and keeps their sums in shared memory.
-// Up to 42 dims (MAX_D), where a tile of 256 rows still fits.
+// A block's tile holds at most 42 dims (MAX_D: a tile of 256 rows still
+// fits), so wider rows fold in chunks of dims, balanced, each a row of the
+// grid (blockIdx.y; the CHUNKED build, so rows of at most 42 dims run the
+// one-chunk code unchanged): a pair's terms, their order and its sum are
+// its own, so the chunks give the bits of one block over all dims.
 // - The block copies tiles of seg and vals into shared memory with
 //   cp.async, coalesced, the next tile in flight while the warps work on
 //   this one (two buffers).
@@ -77,15 +81,23 @@ __device__ __forceinline__ void copy4(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-// rows [t0, t0 + rows) of seg and vals into the tile buffers
+// rows [t0, t0 + rows) of seg and of the chunk's dims [d0, d0 + dc) of
+// vals (rows of D dims) into the tile buffers
+template <bool CHUNKED>
 __device__ __forceinline__ void load_tile(int* seg_t, float* val_t,
                                           const int* seg, const float* vals,
-                                          int t0, int rows, int D) {
+                                          int t0, int rows, int D, int d0,
+                                          int dc) {
   for (int r = threadIdx.x; r < rows; r += BLOCK)
     copy4(seg_t + r, seg + t0 + r);
   const float* src = vals + static_cast<size_t>(t0) * D;
-  for (int k = threadIdx.x; k < rows * D; k += BLOCK)
-    copy4(val_t + k, src + k);
+  if constexpr (!CHUNKED) {
+    for (int k = threadIdx.x; k < rows * D; k += BLOCK)
+      copy4(val_t + k, src + k);
+  } else {
+    for (int k = threadIdx.x; k < rows * dc; k += BLOCK)
+      copy4(val_t + k, src + static_cast<size_t>(k / dc) * D + d0 + k % dc);
+  }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
@@ -112,10 +124,14 @@ __device__ __forceinline__ float fold(const float* L, int n, float acc) {
   return acc;
 }
 
+// vals [A, D]; CHUNKED: grid row y folds the dims [y * DC, y * DC + dc),
+// dc = min(DC, D - y * DC), else the one row folds all D; the row's pairs
+// p = s * dc + d, `per` a block
+template <bool CHUNKED>
 __global__ void __launch_bounds__(BLOCK)
     seg_fold_kernel(const float* __restrict__ vals,
-                    const int* __restrict__ seg, int A, int D, int num,
-                    int tile, int per, float* __restrict__ out) {
+                    const int* __restrict__ seg, int A, int D, int DC,
+                    int num, int tile, int per, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   // a list a warp, the pairs' sums, the tile's live rows, then two tile
   // buffers of seg and of vals
@@ -127,27 +143,31 @@ __global__ void __launch_bounds__(BLOCK)
   __shared__ int wsum[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
-  // this block's pairs [p0, p0 + np), pair p = s * D + d
-  const int p0 = blockIdx.x * per, np = min(per, num * D - p0);
+  // this block's chunk of dims, and its pairs [p0, p0 + np) of the chunk
+  const int d0 = CHUNKED ? blockIdx.y * DC : 0;
+  const int dc = CHUNKED ? min(DC, D - d0) : D;
+  const int p0 = blockIdx.x * per, np = min(per, num * dc - p0);
+  if (CHUNKED && np <= 0) return;  // past a narrower last chunk's pairs
   const int tiles = (A + tile - 1) / tile;
   const int span = tile / WARPS;  // rows a warp marks, a multiple of 32
   float* L = lists + warp * (tile + PAD);
   for (int j = threadIdx.x; j < np; j += BLOCK) accs[j] = 0.0f;
-  if (tiles > 0) load_tile(seg_t, val_t, seg, vals, 0, min(tile, A), D);
+  if (tiles > 0)
+    load_tile<CHUNKED>(seg_t, val_t, seg, vals, 0, min(tile, A), D, d0, dc);
   for (int t = 0; t < tiles; ++t) {
     const int cur = t & 1;
     if (t + 1 < tiles) {
       const int t1 = (t + 1) * tile;
-      load_tile(seg_t + (cur ^ 1) * tile,
-                val_t + static_cast<size_t>(cur ^ 1) * tile * D, seg, vals,
-                t1, min(tile, A - t1), D);
+      load_tile<CHUNKED>(seg_t + (cur ^ 1) * tile,
+                val_t + static_cast<size_t>(cur ^ 1) * tile * dc, seg, vals,
+                t1, min(tile, A - t1), D, d0, dc);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
     const int* sg = seg_t + cur * tile;
-    const float* vt = val_t + static_cast<size_t>(cur) * tile * D;
+    const float* vt = val_t + static_cast<size_t>(cur) * tile * dc;
     const int rows = min(tile, A - t * tile);
 
     // the tile's live rows in row order, once for all the block's pairs: a
@@ -162,7 +182,7 @@ __global__ void __launch_bounds__(BLOCK)
       if (32 * k < span && r < rows) {
         ok = sg[r] >= 0 && sg[r] < num;
         bool nz = false;
-        for (int dd = 0; dd < D; ++dd) nz = nz || vt[r * D + dd] != 0.0f;
+        for (int dd = 0; dd < dc; ++dd) nz = nz || vt[r * dc + dd] != 0.0f;
         ok = ok && nz;
       }
       lm[k] = __ballot_sync(0xffffffffu, ok);
@@ -186,7 +206,7 @@ __global__ void __launch_bounds__(BLOCK)
     // each warp its pairs j, j + WARPS, ...: the pair's terms among the
     // live rows, listed in row order, then folded into its sum
     for (int j = warp; j < np; j += WARPS) {
-      const int s = (p0 + j) / D, d = (p0 + j) % D;
+      const int s = (p0 + j) / dc, d = (p0 + j) % dc;
       int n = 0;
       for (int k0 = 0; k0 < nlive; k0 += 32 * SCAN) {
         // SCAN runs of 32 live rows at once: their loads and ballots are
@@ -197,7 +217,7 @@ __global__ void __launch_bounds__(BLOCK)
         for (int k = 0; k < SCAN; ++k) {
           const int q = k0 + 32 * k + lane;
           const int r = q < nlive ? live[q] : 0;
-          const float x = vt[r * D + d];
+          const float x = vt[r * dc + d];
           v[k] = q < nlive && sg[r] == s ? x : 0.0f;
           m[k] = __ballot_sync(0xffffffffu, v[k] != 0.0f);
         }
@@ -213,7 +233,14 @@ __global__ void __launch_bounds__(BLOCK)
     }
     __syncthreads();  // the buffers are written again
   }
-  for (int j = threadIdx.x; j < np; j += BLOCK) out[p0 + j] = accs[j];
+  for (int j = threadIdx.x; j < np; j += BLOCK) {
+    if constexpr (CHUNKED) {
+      const int s = (p0 + j) / dc, d = (p0 + j) % dc;
+      out[static_cast<size_t>(s) * D + d0 + d] = accs[j];
+    } else {
+      out[p0 + j] = accs[j];
+    }
+  }
 }
 
 // rows a tile for D dims and `per` pairs a block: the most, up to
@@ -226,7 +253,8 @@ int tile_rows(int D, int per) {
   return 0;
 }
 
-// the most dims: a tile of BLOCK rows and a block's first WARPS pairs fit
+// the most dims a block's tile holds: a tile of BLOCK rows and a block's
+// first WARPS pairs fit
 constexpr int MAX_D = 42;
 static_assert(4 * (WARPS * (BLOCK + PAD) + WARPS + BLOCK +
                    2 * BLOCK * (1 + MAX_D)) <= MAX_SHARED &&
@@ -242,8 +270,8 @@ int max_per(int D) {
 }  // namespace
 
 // vals f32[A, D], seg i32[A] (row-major, on the device); out f32[num, D].
-// Takes at most MAX_D = 42 dims and num x D < 2^31 pairs. Returns the CUDA
-// error code of the launch (0 on success).
+// Takes num x D < 2^31 pairs, any D, in chunks of at most MAX_D dims.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int seg_fold_launch(const float* vals, const int* seg, int A,
                                int D, int num, float* out, void* stream) {
   // per device, once: its SM count, and the kernel's shared-memory limit
@@ -254,26 +282,39 @@ extern "C" int seg_fold_launch(const float* vals, const int* seg, int A,
   int& sms = sm_count[dev];
   if (sms == 0) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(seg_fold_kernel,
+    cudaFuncSetAttribute(seg_fold_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         MAX_SHARED);
+    cudaFuncSetAttribute(seg_fold_kernel<true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          MAX_SHARED);
   }
-  const long long P = static_cast<long long>(num) * D;
-  if (A < 0 || D < 0 || D > MAX_D || num < 0 || P > 0x7fffffff)
+  if (A < 0 || D < 0 || num < 0 ||
+      static_cast<long long>(num) * D > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (P == 0) return static_cast<int>(cudaGetLastError());
-  // a block a WARPS pairs, up to two blocks an SM; then `per` a block, but
-  // no more than a block keeps beside a tile (more blocks then)
+  if (static_cast<long long>(num) * D == 0)
+    return static_cast<int>(cudaGetLastError());
+  // the dims in the fewest chunks of at most MAX_D, balanced: DC the widest
+  const int chunks = (D + MAX_D - 1) / MAX_D;
+  const int DC = (D + chunks - 1) / chunks;
+  const long long P = static_cast<long long>(num) * DC;
+  // a block a WARPS pairs of a chunk, up to two blocks an SM; then `per` a
+  // block, but no more than a block keeps beside a tile (more blocks then)
   const long long want = (P + WARPS - 1) / WARPS;
   long long blocks = want < 2 * sms ? want : 2 * sms;
-  const long long cap = max_per(D);
+  const long long cap = max_per(DC);
   const int per = static_cast<int>(
       std::min((P + blocks - 1) / blocks, cap));
   blocks = (P + per - 1) / per;
-  const int tile = tile_rows(D, per);
-  const int bytes = static_cast<int>(shared_bytes(tile, D, per));
-  seg_fold_kernel<<<static_cast<unsigned>(blocks), BLOCK, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      vals, seg, A, D, num, tile, per, out);
+  const int tile = tile_rows(DC, per);
+  const int bytes = static_cast<int>(shared_bytes(tile, DC, per));
+  const dim3 grid(static_cast<unsigned>(blocks), chunks);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chunks > 1)
+    seg_fold_kernel<true><<<grid, BLOCK, bytes, st>>>(vals, seg, A, D, DC,
+                                                      num, tile, per, out);
+  else
+    seg_fold_kernel<false><<<grid, BLOCK, bytes, st>>>(vals, seg, A, D, DC,
+                                                       num, tile, per, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -106,7 +106,8 @@ struct Args {
   int D, NL, ROWS;
 };
 
-template <int T>
+// WIDE: built for R > REG_R resource dims (placement.cuh)
+template <int T, bool WIDE>
 __global__ void __launch_bounds__(T)
     shard_cand_kernel(const __grid_constant__ Args a) {
   constexpr int NW = T / 32;
@@ -118,7 +119,8 @@ __global__ void __launch_bounds__(T)
   const float NEG_F = static_cast<float>(-1e30);
 
   // the task, from device memory
-  const ShardTask t = load_shard_task(e, a.req, a.task, 1, a.istgt[0] > 0);
+  const ShardTask<WIDE> t =
+      load_shard_task<WIDE>(e, a.req, 1, a.task, 1, a.istgt[0] > 0);
 
   Cand c[2] = {{NEG_F, INT_MAX, 0}, {NEG_F, INT_MAX, 0}};
   int any = 0;  // bit v: some row is feasible in view v
@@ -246,7 +248,7 @@ extern "C" int shard_candidates_launch(void* const* ptrs, const int* dims,
                                        const float* weights, void* stream) {
   const int D = dims[D_D], NL = dims[D_NL], R = dims[D_R], G = dims[D_G],
             T = dims[D_THREADS], ROWS = dims[D_ROWS];
-  if (R < 1 || R > MAX_R || D < 1 || NL < 1 || G < 0 ||
+  if (R < 1 || D < 1 || NL < 1 || G < 0 ||
       (T != 128 && T != 256) || ROWS < T || ROWS % T)
     return static_cast<int>(cudaErrorInvalidValue);
   auto F = [&](int i) { return static_cast<const float*>(ptrs[i]); };
@@ -292,9 +294,14 @@ extern "C" int shard_candidates_launch(void* const* ptrs, const int* dims,
   a.ROWS = ROWS;
   const dim3 grid((NL + ROWS - 1) / ROWS, D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T == 128)
-    shard_cand_kernel<128><<<grid, 128, 0, st>>>(a);
+  const bool wide = R > REG_R;
+  if (T == 128 && !wide)
+    shard_cand_kernel<128, false><<<grid, 128, 0, st>>>(a);
+  else if (T == 128)
+    shard_cand_kernel<128, true><<<grid, 128, 0, st>>>(a);
+  else if (!wide)
+    shard_cand_kernel<256, false><<<grid, 256, 0, st>>>(a);
   else
-    shard_cand_kernel<256><<<grid, 256, 0, st>>>(a);
+    shard_cand_kernel<256, true><<<grid, 256, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

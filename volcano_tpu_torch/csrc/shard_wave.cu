@@ -59,7 +59,10 @@
 //   a ticket from its column's counter (atomicAdd). The block that takes
 //   the column's last ticket merges each shard's B partials in a tree of
 //   such steps (groups of 8, all warps at once, the levels in shared
-//   memory), writes the per-shard outputs in the plain version's layout,
+//   memory; past what a block's shared memory holds, about 2.9 M rows a
+//   shard, in a scratch of device memory the wrapper keeps a column, the
+//   same levels in the same order), writes the per-shard outputs in the
+//   plain version's layout,
 //   merges the D shards' lists the same way (the combine: with one shard
 //   its list is the combined list), writes the combined outputs and puts
 //   the counter back to 0 for the next launch.
@@ -88,18 +91,21 @@ constexpr int GROUP = 64 / MAX_C;
 
 // pointer slots of shard_wave_launch: the node-axis inputs in the order of
 // shard_wave.WaveArgs (after req and task), then the scratch: the blocks'
-// partials Part[W, D, B] and the column counters u32[W] (0)
+// partials Part[W, D, B], the column counters u32[W] (0), and the last
+// blocks' merge levels List[W, level_lists(D, B)] where they do not fit
+// shared memory (else null)
 enum Ptr {
   P_TSTAT, P_TSCORE, P_NASCORE, P_BLOCKNR, P_BLOCKALL, P_BONUS, P_LOCKED,
   P_ORFEAS, P_REL, P_PIP, P_ALLOC, P_CNT, P_MAXP, P_GIDLE0, P_IDLE, P_PIPE,
   P_PODS, P_GPUX,
-  S_PART, S_TICKET,
+  S_PART, S_TICKET, S_LEVELS,
   N_PTRS
 };
 
 // integer dimensions of shard_wave_launch: the wrapper's block count B and
 // scratch bytes are checked against the kernel's own
-enum Dim { D_D, D_NL, D_R, D_G, D_W, D_C, D_B, D_PART_BYTES, N_DIMS };
+enum Dim { D_D, D_NL, D_R, D_G, D_W, D_C, D_B, D_PART_BYTES, D_LEVEL_BYTES,
+           N_DIMS };
 
 // the output fields, in the order of shard_wave.WaveCandidates: the
 // launcher takes each one's byte offset in the output buffer
@@ -110,6 +116,10 @@ enum Field {
 
 constexpr int WB = 256;  // threads a block, a row each
 constexpr int NW = WB / 32;
+// the dynamic shared memory the last block's merge levels may take: a
+// block's 232,448 bytes less 4,096 for the static lists
+// (shard_wave.MAX_LEVEL_BYTES)
+constexpr size_t MAX_LEVEL_SHARED = 232448 - 4096;
 
 // the istgt row of the task table i32[7, W] (after shard_placer.TASK_FIELDS)
 constexpr int T_ISTGT = 6;
@@ -146,8 +156,18 @@ struct Args {
   int* etie_o;       // [2, W]
   Part* part;
   unsigned int* ticket;
+  List* levels;  // [W, level_lists(D, B)], or null: in shared memory
   int D, NL, W, C;
 };
+
+// the last block's two buffers of lists: level 1's 2 D ceil(B / GROUP),
+// and level 2's 2 D ceil(B / GROUP^2), which also hold the levels after
+// it (taken in turn) and the combine's
+__host__ __device__ inline size_t level_lists(int D, int B) {
+  const size_t g1 = (B + GROUP - 1) / GROUP;
+  const size_t g2 = (g1 + GROUP - 1) / GROUP;
+  return 2 * static_cast<size_t>(D) * (g1 + g2);
+}
 
 // the order of the entries: a higher score first, then a lower row
 __device__ __forceinline__ bool before(float s, int i, float ts, int ti) {
@@ -276,6 +296,8 @@ __device__ __forceinline__ int merge_level(const volatile List* src, int vs,
   return ng;
 }
 
+// WIDE: built for R > REG_R resource dims (placement.cuh)
+template <bool WIDE>
 __global__ void __launch_bounds__(WB)
     shard_wave_kernel(const __grid_constant__ Args a) {
   const NodeEnv& e = a.env;
@@ -290,16 +312,20 @@ __global__ void __launch_bounds__(WB)
 
   // column w's task, from device memory: one load a scalar for the block
   // (the launch's blocks all read the same few lines, so a load a thread
-  // would queue on them), then every thread from shared memory
-  __shared__ float s_req[MAX_R + 1];
+  // would queue on them), then every thread from shared memory; the WIDE
+  // build reads the request where it uses it, from column w in place
+  __shared__ float s_req[REG_R + 1];
   __shared__ int s_task[T_ISTGT + 1];
-  if (tid <= a.env.R)
+  if (!WIDE && tid <= a.env.R)
     s_req[tid] = tid < a.env.R || a.env.G > 0 ? a.req[tid * W + w] : 0.0f;
-  else if (tid >= 32 && tid <= 32 + T_ISTGT)
+  if (tid >= 32 && tid <= 32 + T_ISTGT)
     s_task[tid - 32] = a.task[(tid - 32) * W + w];
   __syncthreads();
-  const ShardTask t = load_shard_task(e, s_req, s_task, 1,
-                                      s_task[T_ISTGT] > 0);
+  const ShardTask<WIDE> t =
+      WIDE ? load_shard_task<WIDE>(e, a.req + w, W, s_task, 1,
+                                   s_task[T_ISTGT] > 0)
+           : load_shard_task<WIDE>(e, s_req, 1, s_task, 1,
+                                   s_task[T_ISTGT] > 0);
 
   // this thread's entry a view: its row if it is feasible there, else
   // nothing (-inf, INT_MAX)
@@ -344,9 +370,14 @@ __global__ void __launch_bounds__(WB)
 
   // the last block of column w: each shard's B partials of each view
   // merged in a tree of levels (pair q = v * D + dd), into two buffers of
-  // lists in shared memory taken in turn
+  // lists taken in turn: in shared memory, or in column w's part of the
+  // levels scratch (read back through merge_lists' volatile loads, written
+  // and read by this block alone, between its barriers)
   extern __shared__ List lv[];
-  List* buf[2] = {lv, lv + 2 * D * ((B + GROUP - 1) / GROUP)};
+  List* const base =
+      a.levels != nullptr ? a.levels + static_cast<size_t>(w) * level_lists(D, B)
+                          : lv;
+  List* buf[2] = {base, base + 2 * D * ((B + GROUP - 1) / GROUP)};
   __threadfence();
   // level 1 from the partials (a Part is two lists: pair (v, dd)'s list j
   // is list 2 (dd B + j) + v from the column's first), then the levels in
@@ -393,13 +424,7 @@ __global__ void __launch_bounds__(WB)
   if (tid == 0) a.ticket[w] = 0u;
 }
 
-// the last block's two buffers of lists: level 1's 2 D ceil(B / GROUP),
-// and level 2's 2 D ceil(B / GROUP^2), which also hold the combine's
-size_t level_bytes(int D, int B) {
-  const size_t g1 = (B + GROUP - 1) / GROUP;
-  const size_t g2 = (g1 + GROUP - 1) / GROUP;
-  return sizeof(List) * 2 * static_cast<size_t>(D) * (g1 + g2);
-}
+size_t level_bytes(int D, int B) { return sizeof(List) * level_lists(D, B); }
 
 }  // namespace
 
@@ -415,16 +440,23 @@ extern "C" int shard_wave_launch(void* const* ptrs, const int* dims,
   const int D = dims[D_D], NL = dims[D_NL], R = dims[D_R], G = dims[D_G];
   const int W = dims[D_W], C = dims[D_C];
   const int B = (NL + WB - 1) / WB;
-  if (R < 1 || R > MAX_R || D < 1 || NL < 1 || G < 0 || W < 1 || C < 1 ||
+  // the merge levels in shared memory where they fit, else in the scratch
+  const size_t bytes = level_bytes(D, B);
+  const bool in_shared = bytes <= MAX_LEVEL_SHARED;
+  if (R < 1 || D < 1 || NL < 1 || G < 0 || W < 1 || C < 1 ||
       C > MAX_C || dims[D_B] != B ||
       static_cast<size_t>(dims[D_PART_BYTES]) <
-          sizeof(Part) * static_cast<size_t>(B) * W * D)
+          sizeof(Part) * static_cast<size_t>(B) * W * D ||
+      (!in_shared && (ptrs[S_LEVELS] == nullptr ||
+                      static_cast<size_t>(dims[D_LEVEL_BYTES]) <
+                          bytes * static_cast<size_t>(W))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = level_bytes(D, B);
-  if (bytes > 48 * 1024) {
+  const bool wide = R > REG_R;
+  const size_t smem = in_shared ? bytes : 0;
+  if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        shard_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        wide ? shard_wave_kernel<true> : shard_wave_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   auto F = [&](int i) { return static_cast<const float*>(ptrs[i]); };
@@ -470,11 +502,16 @@ extern "C" int shard_wave_launch(void* const* ptrs, const int* dims,
   a.etie_o = reinterpret_cast<int*>(o + at[F_ETIES]);
   a.part = static_cast<Part*>(ptrs[S_PART]);
   a.ticket = static_cast<unsigned int*>(ptrs[S_TICKET]);
+  a.levels = in_shared ? nullptr : static_cast<List*>(ptrs[S_LEVELS]);
   a.D = D;
   a.NL = NL;
   a.W = W;
   a.C = C;
-  shard_wave_kernel<<<dim3(B, W, D), WB, bytes,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid(B, W, D);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide)
+    shard_wave_kernel<true><<<grid, WB, smem, st>>>(a);
+  else
+    shard_wave_kernel<false><<<grid, WB, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

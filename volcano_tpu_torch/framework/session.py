@@ -31,6 +31,10 @@ on the device across cycles (``ops/fused_io.DeltaKernel``): a cycle ships
 only the elements that changed, and an integrity digest checks the
 resident buffers against their host mirror.
 
+``run_allocate_oracle`` runs the allocate pass on the host's numpy oracle
+(``runtime/cpu_reference.py``) when a caller asks for it; nothing on the
+card path falls back to it.
+
 Not carried yet (ROADMAP): pipelined dispatch (depth k, speculation, an
 asynchronous pack), the CPU-oracle rung, warm-restart mirrors, chaos
 seams, metrics and trace spans (items 2b, 8 and 10); the mesh path's
@@ -694,6 +698,33 @@ class Session:
         buffers), run the allocate cycle, read the packed decisions back
         and apply them: ``complete_allocate(dispatch_allocate())``."""
         return self.complete_allocate(self.dispatch_allocate())
+
+    def run_allocate_oracle(self):
+        """The whole allocate pass on the host's numpy oracle
+        (``runtime/cpu_reference.allocate_cpu``), with the cycle's derived
+        config and extras, applied to the session as a card cycle's result
+        is (``last_allocate``, :meth:`apply_allocate`, ``apply_ms``); sets
+        ``stats["cpu_oracle"]``. An explicit entry point: it runs only when
+        called, and nothing on the card path falls back to it.
+        ``collect_telemetry=True`` turns on the oracle's mirror of the
+        cycle's capacity give-up, which job_ready and the PodGroup updates
+        need to match the cycle's."""
+        from ..runtime.cpu_reference import allocate_cpu
+        cfg, extras = self._derived_allocate_inputs()
+        out = allocate_cpu(self.snap, extras, cfg, collect_telemetry=True)
+        result = types.SimpleNamespace(
+            task_node=np.asarray(out["task_node"], np.int32),
+            task_mode=np.asarray(out["task_mode"], np.int32),
+            task_gpu=np.asarray(out["task_gpu"], np.int32),
+            job_ready=np.asarray(out["job_ready"], bool),
+            job_pipelined=np.asarray(out["job_pipelined"], bool),
+            job_attempted=np.asarray(out["job_attempted"], bool))
+        self.last_allocate = result
+        self.stats["cpu_oracle"] = 1.0
+        t0 = time.perf_counter()
+        self.apply_allocate(result)
+        self.stats["apply_ms"] = (time.perf_counter() - t0) * 1000
+        return result
 
     def dispatch_allocate(self) -> PendingAllocate:
         """Upload and run the allocate cycle, without reading its packed

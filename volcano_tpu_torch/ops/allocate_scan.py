@@ -295,6 +295,32 @@ def _check_supported(cfg: AllocateConfig, mesh=None) -> None:
             "batch_rounds (derive_batching sets it) for dynamic keys")
 
 
+def _aff_dims(cfg: AllocateConfig, extras) -> dict:
+    """The placers' affinity dims (``round_placer.aff_dims``) from the
+    extras' shapes."""
+    if not cfg.enable_pod_affinity:
+        return dict(aff=0, SK=0, ETA=0, SEL=0, A=0, B=0, PP=0)
+    afa = extras.affinity
+    return dict(aff=1, SK=afa.sk_domain.shape[0],
+                ETA=afa.eta_domain.shape[0], SEL=afa.static_pref.shape[0],
+                A=afa.task_aff_sk.shape[1], B=afa.task_anti_term.shape[1],
+                PP=afa.task_pref_sk.shape[1])
+
+
+def round_refusal(cfg: AllocateConfig, snap, extras) -> Optional[str]:
+    """Why the static-key round placer's kernel does not take this
+    snapshot's shapes (a block's slice of the node state over its shared
+    memory: ``round_placer.refusal``, the check every launch makes), or
+    None. Read from shapes alone, before the cycle runs."""
+    nodes = snap.nodes
+    N, R = nodes.idle.shape
+    ad = _aff_dims(cfg, extras)
+    return round_placer.refusal(
+        N, round_placer.CLUSTER, snap.jobs.task_table.shape[1], R,
+        nodes.gpu_memory.shape[1] if cfg.enable_gpu else 0, ad["SK"],
+        round_placer.aff_list_ints(ad))
+
+
 def dyn_refusal(cfg: AllocateConfig, snap, extras) -> Optional[str]:
     """Why the dynamic-key placer's kernel does not take this snapshot's
     shapes (more ordering keys than it keys on, or more jobs than its
@@ -305,13 +331,7 @@ def dyn_refusal(cfg: AllocateConfig, snap, extras) -> Optional[str]:
     J, M = jobs.task_table.shape
     NH = 2 * extras.hierarchy.queue_path.shape[1] if cfg.enable_hdrf else 0
     plan, NKS = dp.key_plan(cfg, NH)
-    ad = dict(aff=0, SK=0, ETA=0, SEL=0, A=0, B=0, PP=0)
-    if cfg.enable_pod_affinity:
-        afa = extras.affinity
-        ad = dict(aff=1, SK=afa.sk_domain.shape[0],
-                  ETA=afa.eta_domain.shape[0], SEL=afa.static_pref.shape[0],
-                  A=afa.task_aff_sk.shape[1], B=afa.task_anti_term.shape[1],
-                  PP=afa.task_pref_sk.shape[1])
+    ad = _aff_dims(cfg, extras)
     S = extras.ns_share.shape[0] if cfg.drf_ns_order else 0
     return dp.refusal(
         N, J, dp.CLUSTER, len(plan), max(1, int(cfg.batch_jobs)), M, R,
@@ -323,16 +343,18 @@ def dyn_refusal(cfg: AllocateConfig, snap, extras) -> Optional[str]:
 def cycle_path(cfg: AllocateConfig, snap, extras, mesh=None) -> str:
     """The path :func:`make_allocate_cycle` takes for this snapshot, from
     its shapes: ``"mesh"`` under a node mesh, ``"round"`` (the static-key
-    round placer), ``"dyn"`` (the dynamic-key placer), or ``"dyn_mesh"``:
-    dynamic keys whose snapshot the dynamic-key kernel does not take
-    (:func:`dyn_refusal`), placed on the one-shard mesh path, one pop and
-    one attempt at a time through the shard-local candidate kernel. That
-    is where the reference goes when its VMEM estimate refuses its fused
-    kernel: its scan path, whose decisions the mesh path gives."""
+    round placer), ``"dyn"`` (the dynamic-key placer), or ``"round_mesh"``
+    and ``"dyn_mesh"``: static or dynamic keys whose snapshot the placer's
+    kernel does not take (:func:`round_refusal`, :func:`dyn_refusal`),
+    placed on the one-shard mesh path, one pop and one attempt at a time
+    through the shard-local candidate kernel. That is where the reference
+    goes when its VMEM estimate refuses its fused kernel: its scan path,
+    whose decisions the mesh path gives."""
     if mesh is not None:
         return "mesh"
     if max(0, int(cfg.batch_rounds)) == 0:
-        return "round"
+        return "round" if round_refusal(cfg, snap, extras) is None \
+            else "round_mesh"
     return "dyn" if dyn_refusal(cfg, snap, extras) is None else "dyn_mesh"
 
 
@@ -860,11 +882,13 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
 
     Without a mesh the fused placers take whole job sections and ignore
     ``wave_width``, as the reference's do (allocate_scan.py:623-627). A
-    dynamic-key snapshot that the dynamic-key kernel does not take (J past
-    its job limit, or more ordering keys than it keys on) runs the mesh
-    path on one shard instead (:func:`cycle_path` ``"dyn_mesh"``), unless
-    ``dyn_placer`` is given: the choice is made from shapes before the
-    cycle, never from a launch's error, and runs no plain version.
+    snapshot that its placer's kernel does not take (a static-key node
+    slice past kernel 1's shared memory; J past the dynamic-key kernel's
+    job limit, or more ordering keys than it keys on) runs the mesh path
+    on one shard instead (:func:`cycle_path` ``"round_mesh"``,
+    ``"dyn_mesh"``), unless ``placer`` or ``dyn_placer`` is given: the
+    choice is made from shapes before the cycle, never from a launch's
+    error, and runs no plain version.
     """
     if mesh is not None:
         cfg = normalize_wave(cfg)
@@ -1030,8 +1054,11 @@ def make_allocate_cycle(cfg: AllocateConfig, placer=None, dyn_placer=None,
             return keys, hcols
 
         D = mesh.size if mesh is not None else 0
-        if (D == 0 and dyn and dyn_placer is None
-                and dyn_refusal(cfg, snap, extras) is not None):
+        if D == 0 and (
+                (dyn and dyn_placer is None
+                 and dyn_refusal(cfg, snap, extras) is not None)
+                or (not dyn and placer is None
+                    and round_refusal(cfg, snap, extras) is not None)):
             # the one-shard mesh path, with the mesh path's supported set
             from ..parallel.sharding import NodeMesh
             _check_supported(cfg, NodeMesh((dev,)))

@@ -573,11 +573,10 @@ def launch_plan(cfg, C: int, M: int, a: DynArgs, cb: Optional[int] = None,
     computed here when not given."""
     R, N, _, _, J, Q, S, NH, G = _shapes(a)
     CB = CLUSTER if cb is None else cb
-    # one cluster, per-dim registers, each block's slices of the node state
-    # and of the job rows in shared memory, a job bitmask per thread
-    if not 1 <= R <= rp.MAX_R:
-        raise ValueError(f"the kernel takes 1..{rp.MAX_R} resource dims, "
-                         f"got {R}")
+    # one cluster, each block's slices of the node state and of the job
+    # rows in shared memory, a job bitmask per thread
+    if R < 1:
+        raise ValueError(f"the kernel takes 1 or more resource dims, got {R}")
     if not 1 <= CB <= MAX_CB:
         raise ValueError(f"the kernel takes clusters of 1..{MAX_CB} blocks, "
                          f"not {CB}")

@@ -70,9 +70,6 @@ _OVER = float(np.float32(1.0 + 1e-6))
 NEG = float(np.float32(-1e30))       # select.NEG
 _BIG = float(np.float32(3.4e38))     # the normalisation's empty extremes
 
-#: node-axis sums inside the kernel keep one register slot per resource dim
-MAX_R = 8
-
 #: launches of the CUDA kernel since the count was last set to 0, and those
 #: of them that ran the pod-affinity step
 launches = 0
@@ -578,6 +575,23 @@ def shared_bytes(N: int, CB: int, M: int, R: int, G: int, SK: int = 0,
     return (col * cap + M * (col + 1) + 3 * M + SK + list_ints) * 4
 
 
+def refusal(N: int, CB: int, M: int, R: int, G: int, SK: int = 0,
+            list_ints: int = 0) -> Optional[str]:
+    """Why the kernel does not take a launch of these shapes: a block's
+    slice of the node state, saved columns and term lists
+    (:func:`shared_bytes`) over :data:`MAX_SHARED`; None when it takes
+    them. The allocate cycle routes such a static-key snapshot to the
+    one-shard mesh path (``allocate_scan.round_refusal``), as the
+    reference leaves its fused kernel for its scan path when the kernel's
+    VMEM estimate does not fit (volcano_tpu/ops/allocate_scan.py:567-605).
+    """
+    smem = shared_bytes(N, CB, M, R, G, SK, list_ints)
+    if smem > MAX_SHARED:
+        return (f"N={N}, M={M}, R={R} need {smem} bytes of shared memory a "
+                f"block at CB={CB}, over the {MAX_SHARED} a block can take")
+    return None
+
+
 def aff_shapes(a, S: int) -> dict:
     """Expected shape and dtype of each affinity argument of a launch with
     S slots (for the wrappers' layout checks)."""
@@ -656,19 +670,16 @@ def round_place_cuda(cfg, K: int, M: int, args, cb: Optional[int] = None):
     G = a.gidle0.shape[0] if gpu else 0
     ad = aff_dims(a)
     CB = CLUSTER if cb is None else cb
-    # launch shape: one cluster, per-dim registers, each block's slice of
-    # the state, the section's saved columns and one attempt's affinity
-    # term lists
-    if not 1 <= R <= MAX_R:
-        raise ValueError(f"the kernel takes 1..{MAX_R} resource dims, got {R}")
+    # launch shape: one cluster, each block's slice of the state, the
+    # section's saved columns and one attempt's affinity term lists
+    if R < 1:
+        raise ValueError(f"the kernel takes 1 or more resource dims, got {R}")
     if not 1 <= CB <= MAX_CB:
         raise ValueError(f"the kernel takes clusters of 1..{MAX_CB} blocks, "
                          f"not {CB}")
-    smem = shared_bytes(N, CB, M, R, G, ad["SK"], aff_list_ints(ad))
-    if smem > MAX_SHARED:
-        raise ValueError(f"N={N}, M={M} need {smem} bytes of shared memory "
-                         f"a block at CB={CB}, over the {MAX_SHARED} a "
-                         f"block can take")
+    why = refusal(N, CB, M, R, G, ad["SK"], aff_list_ints(ad))
+    if why is not None:
+        raise ValueError(why)
     KM = K * M
     dev = a.idle.device
     outs = [torch.empty(KM, dtype=torch.int32, device=dev) for _ in range(3)]

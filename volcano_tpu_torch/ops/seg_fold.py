@@ -29,9 +29,6 @@ from ._build import stream_handle
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
-#: the most dims the kernel takes (csrc/seg_fold.cu MAX_D: a tile of 256
-#: rows of that many dims still fits its shared memory)
-MAX_DIMS = 42
 
 
 def _check(vals: torch.Tensor, seg: torch.Tensor, num: int):
@@ -82,21 +79,18 @@ def seg_fold_cuda(vals: torch.Tensor, seg: torch.Tensor,
     """Launch the CUDA kernel on the current stream (no synchronisation).
     The host path is one test of what the kernel takes, the output's
     allocation and the call; other inputs go through :func:`_check` (a
-    non-contiguous one is copied). Takes at most :data:`MAX_DIMS` dims
-    and num x D < 2**31 (segment, dim) pairs."""
+    non-contiguous one is copied). Takes any number of dims (the kernel
+    folds them in chunks of at most 42, a row of its grid each) and
+    num x D < 2**31 (segment, dim) pairs."""
     global launches
     dev = vals.get_device()
     if not (dev >= 0 and vals.dtype is torch.float32
             and seg.dtype is torch.int32 and vals.dim() == 2
             and seg.dim() == 1 and seg.shape[0] == vals.shape[0]
             and seg.get_device() == dev and 0 <= num
-            and vals.shape[1] <= MAX_DIMS
             and num * vals.shape[1] < 2 ** 31
             and vals.is_contiguous() and seg.is_contiguous()):
         _check(vals, seg, num)
-        if vals.shape[1] > MAX_DIMS:
-            raise ValueError(f"the kernel takes at most {MAX_DIMS} dims, "
-                             f"got {vals.shape[1]}")
         if num * vals.shape[1] >= 2 ** 31:
             raise ValueError(f"the kernel takes fewer than 2**31 (segment, "
                              f"dim) pairs, got {num} x {vals.shape[1]}")

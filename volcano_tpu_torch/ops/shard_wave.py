@@ -63,7 +63,7 @@ import torch
 
 from . import shard_placer as sp
 from ._build import stream_handle
-from .round_placer import MAX_R, NEG, _weights, check_layout
+from .round_placer import NEG, _weights, check_layout
 
 #: launches of the CUDA kernel since the count was last set to 0 (one per
 #: wave of the sharded cycle, covering every shard of the device)
@@ -267,11 +267,13 @@ def _library_launch():
 #: pointers a launch plan keeps, in the C launcher's order
 NODE_ARGS = WaveArgs._fields[2:]
 #: the C launcher's pointer array: the node-axis inputs, then the scratch
-#: (the blocks' partials and the column counters)
-N_PTRS = len(NODE_ARGS) + 2
+#: (the blocks' partials, the column counters, and the last blocks' merge
+#: levels where they do not fit shared memory, else null)
+N_PTRS = len(NODE_ARGS) + 3
 #: order of the integer dimensions of the C launcher: then the block count
-#: of a shard's column and the partials' scratch bytes, which it checks
-DIMS = ("D", "NL", "R", "G", "W", "C", "B", "part_bytes")
+#: of a shard's column and the partials' and levels' scratch bytes, which
+#: it checks
+DIMS = ("D", "NL", "R", "G", "W", "C", "B", "part_bytes", "level_bytes")
 #: threads a block, a row each (csrc/shard_wave.cu WB: kernel 4's default
 #: block, ``shard_placer.grid_geometry()``; the launcher refuses a block
 #: count other than its own)
@@ -283,7 +285,8 @@ PART_BYTES = 4 * (2 * 2 * MAX_C + 4)
 #: lists a merge step takes (csrc/shard_wave.cu GROUP), bytes of one list
 #: (List: C scores and rows, the count and the ties), and the dynamic
 #: shared memory the last block's merge levels may take: a block's
-#: 232,448 bytes on an H100 less 4,096 for the kernel's static lists
+#: 232,448 bytes on an H100 less 4,096 for the kernel's static lists (past
+#: it the levels go to a scratch in device memory, :func:`levels_shared`)
 GROUP = 8
 LIST_BYTES = 4 * (2 * MAX_C + 2)
 MAX_LEVEL_BYTES = 232448 - 4096
@@ -301,15 +304,13 @@ def level_bytes(D: int, B: int) -> int:
     return LIST_BYTES * 2 * D * (g1 + -(-g1 // GROUP))
 
 
-def max_row_blocks(D: int) -> int:
-    """The most blocks B of a shard's column whose merge levels fit
-    :data:`MAX_LEVEL_BYTES` (about 2.9 M rows in one shard)."""
-    lo, hi = 1, 1 << 24
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if level_bytes(D, mid) <= MAX_LEVEL_BYTES \
-            else (lo, mid - 1)
-    return lo
+def levels_shared(D: int, B: int) -> bool:
+    """Whether the last block keeps its merge levels in shared memory
+    (the launcher's rule); past :data:`MAX_LEVEL_BYTES` (about 2.9 M rows
+    in one shard) each column's last block keeps them in its part of a
+    scratch of W x :func:`level_bytes` in device memory, the same levels
+    merged in the same order."""
+    return level_bytes(D, B) <= MAX_LEVEL_BYTES
 
 
 def grid_shape(D: int, NL: int, W: int):
@@ -338,15 +339,19 @@ def output_layout(D: int, W: int, C: int):
 _work: dict = {}
 
 
-def _workspace(key, dev, W: int, n_parts: int):
-    ticket, part = _work.get(key, (None, None))
+def _workspace(key, dev, W: int, n_parts: int, levels_bytes: int):
+    ticket, part, levels = _work.get(key, (None, None, None))
     if ticket is None or ticket.numel() < W:
         ticket = torch.zeros(max(W, 16), dtype=torch.int32, device=dev)
     if part is None or part.numel() * 4 < n_parts * PART_BYTES:
         part = torch.empty(n_parts * PART_BYTES // 4, dtype=torch.int32,
                            device=dev)
-    _work[key] = (ticket, part)
-    return ticket, part
+    if levels_bytes and (levels is None
+                         or levels.numel() * 4 < levels_bytes):
+        levels = torch.empty(levels_bytes // 4, dtype=torch.int32,
+                             device=dev)
+    _work[key] = (ticket, part, levels)
+    return ticket, part, levels if levels_bytes else None
 
 
 def _check(cfg, D: int, C: int, a: WaveArgs):
@@ -372,13 +377,16 @@ def _node_ptrs(args):
     return tuple(t.data_ptr() for t in args[2:])
 
 
-def launch_pointers(a: WaveArgs, part: torch.Tensor, ticket: torch.Tensor):
+def launch_pointers(a: WaveArgs, part: torch.Tensor, ticket: torch.Tensor,
+                    levels: Optional[torch.Tensor]):
     """The C launcher's pointer array (csrc/shard_wave.cu Ptr): each field
     of :data:`NODE_ARGS` (None for the GPU entries without GPU cards),
-    then the partials' scratch and the column counters."""
+    then the partials' scratch, the column counters and the merge levels'
+    scratch (None where the levels fit shared memory)."""
     return tuple(getattr(a, f).data_ptr() if getattr(a, f) is not None
-                 else None for f in NODE_ARGS) + (part.data_ptr(),
-                                                  ticket.data_ptr())
+                 else None for f in NODE_ARGS) + (
+        part.data_ptr(), ticket.data_ptr(),
+        levels.data_ptr() if levels is not None else None)
 
 
 class _Plan:
@@ -403,32 +411,28 @@ class _Plan:
                              f"not {a.idle.device}")
         _check(cfg, D, C, a)
         R, N = a.idle.shape
-        if not 1 <= R <= MAX_R:
-            raise ValueError(f"the kernel takes 1..{MAX_R} resource dims, "
+        if R < 1:
+            raise ValueError(f"the kernel takes 1 or more resource dims, "
                              f"got {R}")
         W = a.req.shape[1]
         G = a.gidle0.shape[0] if cfg.enable_gpu else 0
         NL = N // D
         B, _, _ = grid_shape(D, NL, W)
-        if level_bytes(D, B) > MAX_LEVEL_BYTES:
-            raise ValueError(
-                f"{NL} rows a shard need {level_bytes(D, B)} bytes of merge "
-                f"levels in the last block's shared memory, over "
-                f"{MAX_LEVEL_BYTES}: the kernel takes at most "
-                f"{max_row_blocks(D) * THREADS} rows a shard at D={D}")
+        lv_bytes = 0 if levels_shared(D, B) else W * level_bytes(D, B)
         dev = a.idle.device
-        ticket, part = _workspace((a.idle.get_device(), stream), dev, W,
-                                  B * W * D)
+        ticket, part, levels = _workspace((a.idle.get_device(), stream),
+                                          dev, W, B * W * D, lv_bytes)
         self.cfg, self.D, self.C, self.a = cfg, D, C, a
         self.node = tuple(args[2:])
         self.node_ptrs = _node_ptrs(args)
         self.stream = stream
         self.req_shape, self.task_shape = a.req.shape, a.task.shape
         self.device, self.index, self.W = dev, a.idle.get_device(), W
-        self.ptrs = (ctypes.c_void_p * N_PTRS)(*launch_pointers(a, part,
-                                                                ticket))
+        self.ptrs = (ctypes.c_void_p * N_PTRS)(*launch_pointers(
+            a, part, ticket, levels))
         self.dims_d = dict(D=D, NL=NL, R=R, G=G, W=W, C=C, B=B,
-                           part_bytes=part.numel() * 4)
+                           part_bytes=part.numel() * 4,
+                           level_bytes=lv_bytes)
         self.dims = (ctypes.c_int * len(DIMS))(*[self.dims_d[k]
                                                  for k in DIMS])
         layout, self.nbytes = output_layout(D, W, C)
@@ -473,11 +477,10 @@ def shard_wave_cuda(cfg, D: int, C: int, args) -> WaveCandidates:
     scratch is kept per device and stream, so launches on one stream run
     in turn and launches on two streams do not share it.
 
-    Limits: R <= 8 resource dims, C <= 8; the last block keeps
-    2 D (ceil(B / 8) + ceil(B / 64)) lists of 72 bytes in shared memory
-    (B = ceil(N / D / 256)), past the card's limit for one block (227 KB
-    on the H100: about 2.9 M rows in one shard, or 800 shards of at
-    most 2,048 rows) the launch fails."""
+    Limits: C <= 8. The last block keeps 2 D (ceil(B / 8) + ceil(B / 64))
+    lists of 72 bytes (B = ceil(N / D / 256)) in shared memory, or, past
+    what one block holds (227 KB on the H100: about 2.9 M rows in one
+    shard), in a scratch the plan keeps (:func:`levels_shared`)."""
     global launches, _plan
     index = args[0].get_device()
     stream = stream_handle(index) if index >= 0 else None

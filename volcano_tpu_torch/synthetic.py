@@ -8,6 +8,9 @@ half the gang, random priorities and random 0.5-1.5 cpu requests.
 
 :func:`affinity_scenario` is a copy of ``scripts/affinity_record.scenario``
 (the repository's BASELINE configuration 5) on the same seeds.
+``_synthetic_cluster(..., extended=10)`` is a MIG-partitioned GPU cluster
+(:data:`MIG_RESOURCES`), and :func:`scalar_cluster` a small cluster of any
+number of resource dims.
 :func:`admission_scenario` is a burst of freshly submitted PodGroups on the
 bench's fair-share configuration, for the enqueue and backfill actions.
 
@@ -23,20 +26,85 @@ from . import api as port_api
 from .api import ClusterInfo, PodAffinityTerm
 
 
+#: the extended resources a MIG-partitioned GPU cluster advertises, in the
+#: order ``_synthetic_cluster(..., extended=k)`` adds the first k of them
+MIG_RESOURCES = (
+    "nvidia.com/gpu", "nvidia.com/mig-1g.10gb", "nvidia.com/mig-2g.20gb",
+    "nvidia.com/mig-3g.40gb", "nvidia.com/mig-7g.80gb", "hugepages-2Mi",
+    "hugepages-1Gi", "rdma/hca", "ephemeral-storage",
+    "nvidia.com/mig-4g.40gb")
+
+
+def _extended_amounts(rng, n_nodes: int, n_jobs: int, names):
+    """Per node and per job, the amounts of the extended resources
+    ``names`` (a subset of :data:`MIG_RESOURCES`) as quantity strings,
+    from ``rng`` alone. Nodes: three of four are GPU nodes (8 GPUs, some
+    of them cut into MIG slices, RDMA devices, 1Gi hugepages), the rest
+    CPU nodes (2Mi hugepages and local storage only); every node has
+    ephemeral storage. Jobs (every task of a job asks the same, as a
+    training job's pods do): half want a whole GPU, a fifth a MIG slice,
+    most an RDMA device, some hugepages and scratch storage. RDMA devices
+    and MIG slices are scarcer than the requests for them, so these dims
+    decide where gangs go and which ones fit."""
+    nodes, jobs = [], []
+    for i in range(n_nodes):
+        gpu = i % 4 != 3
+        full = {
+            "nvidia.com/gpu": str(8 if gpu else 0),
+            "nvidia.com/mig-1g.10gb": str(rng.randint(0, 8) if gpu else 0),
+            "nvidia.com/mig-2g.20gb": str(rng.randint(0, 4) if gpu else 0),
+            "nvidia.com/mig-3g.40gb": str(rng.randint(0, 3) if gpu else 0),
+            "nvidia.com/mig-7g.80gb": str(rng.randint(0, 2) if gpu else 0),
+            "hugepages-2Mi": f"{rng.randint(1, 9) * 256}Mi",
+            "hugepages-1Gi": f"{rng.randint(0, 5) if gpu else 0}Gi",
+            "rdma/hca": str(rng.randint(1, 5) if gpu else 0),
+            "ephemeral-storage": f"{rng.randint(2, 9) * 100}Gi",
+            "nvidia.com/mig-4g.40gb": str(rng.randint(0, 2) if gpu else 0),
+        }
+        nodes.append({k: v for k, v in full.items() if k in names})
+    for j in range(n_jobs):
+        mig = rng.randint(5)
+        want = {
+            "nvidia.com/gpu": "1" if rng.rand() < 0.5 else None,
+            "nvidia.com/mig-1g.10gb": "1" if mig == 1 else None,
+            "nvidia.com/mig-2g.20gb": "1" if mig == 2 else None,
+            "nvidia.com/mig-3g.40gb": "1" if mig == 3 else None,
+            "nvidia.com/mig-7g.80gb": "1" if mig == 4 and rng.rand() < 0.3
+            else None,
+            "hugepages-2Mi": f"{rng.randint(1, 5) * 64}Mi"
+            if rng.rand() < 0.4 else None,
+            "hugepages-1Gi": "1Gi" if rng.rand() < 0.1 else None,
+            "rdma/hca": "1" if rng.rand() < 0.6 else None,
+            "ephemeral-storage": f"{rng.randint(1, 6) * 10}Gi",
+            "nvidia.com/mig-4g.40gb": "1" if mig == 4 and rng.rand() < 0.2
+            else None,
+        }
+        jobs.append({k: v for k, v in want.items()
+                     if k in names and v is not None})
+    return nodes, jobs
+
+
 def _synthetic_cluster(n_nodes: int, n_jobs: int, tasks_per_job: int,
                        seed: int = 0, api=None,
-                       namespaces: int = 0) -> ClusterInfo:
+                       namespaces: int = 0, extended: int = 0) -> ClusterInfo:
     """``namespaces`` > 0 puts job j and its tasks in namespace
     ``ns-{j % namespaces}`` (the same random draws), in place of
-    ``default``."""
+    ``default``. ``extended`` > 0 adds the first ``extended`` of
+    :data:`MIG_RESOURCES` to every node and task (amounts drawn from a
+    second generator, so the other draws stay the same): 2 + ``extended``
+    resource dims."""
     api = api or port_api
     rng = np.random.RandomState(seed)
+    ext_nodes, ext_jobs = _extended_amounts(
+        np.random.RandomState(seed + 7919), n_nodes, n_jobs,
+        MIG_RESOURCES[:extended]) if extended else (None, None)
     ci = api.ClusterInfo()
     for i in range(n_nodes):
         ci.add_node(api.NodeInfo(
             f"n{i:05d}",
             allocatable=api.Resource.from_resource_list(
-                {"cpu": "16", "memory": "64Gi", "pods": "110"})))
+                {"cpu": "16", "memory": "64Gi", "pods": "110",
+                 **(ext_nodes[i] if extended else {})})))
     ci.add_queue(api.QueueInfo("default", weight=1))
     ci.add_queue(api.QueueInfo("batch", weight=2))
     for j in range(n_jobs):
@@ -54,7 +122,38 @@ def _synthetic_cluster(n_nodes: int, n_jobs: int, tasks_per_job: int,
                 uid=f"{ns}/job-{j:05d}-{t}", name=f"job-{j:05d}-{t}",
                 namespace=ns,
                 resreq=api.Resource.from_resource_list(
-                    {"cpu": f"{rng.randint(1, 4) * 500}m", "memory": "1Gi"})))
+                    {"cpu": f"{rng.randint(1, 4) * 500}m", "memory": "1Gi",
+                     **(ext_jobs[j] if extended else {})})))
+        ci.add_job(job)
+    return ci
+
+
+def scalar_cluster(n_dims: int, n_nodes: int = 8,
+                   n_jobs: int = 4) -> ClusterInfo:
+    """A small cluster whose resources have ``n_dims`` dims: cpu, memory
+    and n_dims - 2 extended resources on every node and task, gangs of
+    two, and one Pending gang (the last) for enqueue."""
+    api = port_api
+    extra = {f"example.com/r{k:02d}": "4" for k in range(n_dims - 2)}
+    ci = api.ClusterInfo()
+    ci.add_queue(api.QueueInfo("default", weight=1))
+    for i in range(n_nodes):
+        ci.add_node(api.NodeInfo(f"n{i}", allocatable=api.Resource
+                                 .from_resource_list({"cpu": "16",
+                                                      "memory": "64Gi",
+                                                      "pods": "110",
+                                                      **extra})))
+    for j in range(n_jobs):
+        job = api.JobInfo(f"default/j{j}", queue="default", min_available=2,
+                          pod_group_phase=(api.PodGroupPhase.PENDING
+                                           if j == n_jobs - 1
+                                           else api.PodGroupPhase.INQUEUE))
+        for t in range(2):
+            job.add_task(api.TaskInfo(
+                uid=f"default/j{j}-{t}", name=f"j{j}-{t}",
+                resreq=api.Resource.from_resource_list(
+                    {"cpu": "1", "memory": "1Gi",
+                     **{k: "1" for k in extra}})))
         ci.add_job(job)
     return ci
 
