@@ -221,7 +221,29 @@ Phases, each of which fails the run (exit code 1) when it fails:
    (``Session.run_allocate_oracle``, on a copy of the cluster). Each of
    the five kernels is held bitwise against its plain version on launches
    recorded at R = 12 and timed there; the kernels line carries those
-   times as ``r12``.
+   times as ``r12``;
+30. check O, this slice's main path: the synchronous scheduler loop,
+   ``Scheduler(FakeCluster(...), conf, device="cuda").run_once()``. (i)
+   The north star (``_synthetic_cluster(10000, 6250, 16)``, gang +
+   binpack): cycle 0 a full upload with fingerprint f61d52ccc18b1e69,
+   then three churn cycles (check M's ``steady_churn`` of 5 %, seed 11,
+   marked through the cluster's ``mark_dirty``), each a refresh in place
+   and a delta upload smaller than a full one with no digest mismatch,
+   each fingerprint a fresh full Session's on a copy of the cluster
+   taken before the cycle, and the binds flushed to the cluster the
+   cycle's decisions with the resync queue empty. (ii) The shipped conf's
+   action list (enqueue, allocate, backfill) at check L's
+   ``_synthetic_cluster(256, 160, 16)``: cycle 0 and three churn cycles,
+   each cycle's bind fingerprint the JAX ``Scheduler``'s
+   (``scripts/check_o_targets.py``). The launch counts are set to 0 just
+   before each loop run and read just after: the round placer must have
+   launched in (i), the dynamic-key placer and the segmented sum in
+   (ii); the kernels line's entries of those kernels carry the counts as
+   ``loop_launches``. Each cycle prints the loop's host seconds
+   (``METRICS.observe_cycle``), ``refresh_ms``, ``cycle_ms``,
+   ``upload_bytes`` and the ``cycle.finish`` span's ms (close, phase
+   write-back and the bind flush), beside check M's Session-only
+   ``reopen_to_applied_ms`` for the same churn.
 
 The expected fingerprints are the JAX package's scan path's (and, for A,
 B, D and the raw configuration-5 cycle, its oracle's too). Each phase's
@@ -277,6 +299,14 @@ CHECK_N = ((256, 160, 16), 10, {"static": ("31eb63c33ca4a012", 1313, 83),
 #: Pending), its seed, and the churn cycles of check M; check L runs one
 CHURN = (0.05, 11)
 CHURN_CYCLES = 3
+#: check O (ii): the JAX Scheduler's bind fingerprint of each loop cycle
+#: (cycle 0, then the churn cycles) under the shipped conf at check L's
+#: cluster without its namespaces (env JAX_PLATFORMS=cpu python
+#: scripts/check_o_targets.py)
+CHECK_O = ((256, 160, 16), ((2560, "f4f42af3c9edfebf"),
+                            (128, "4323059e5b244eee"),
+                            (128, "b0685ca506117723"),
+                            (112, "42fa981e0c8a807e")))
 #: kernel 3's fold timing: namespaces at two dims (P = 8, 64, 128 pairs)
 FOLD_S = (4, 32, 64)
 #: kernel 6's fixture shapes: the reference's default, and check G's padded
@@ -1331,6 +1361,146 @@ def churn_cycle(ssn, rng, dyn=False):
     assert not st.get("recoveries"), out
     assert 0 < st["upload_bytes"] < st["full_upload_bytes"], out
     return out
+
+
+def bind_fingerprint(binds):
+    """sha256 of a cycle's bind intents in their order (task uid, node,
+    GPU card), 16 hex digits."""
+    import hashlib
+    h = hashlib.sha256()
+    for b in binds:
+        h.update(f"{b.task_uid} {b.node_name} {b.gpu_index}\n".encode())
+    return h.hexdigest()[:16]
+
+
+def loop_churn(sched, api, seed=CHURN[1], cycles=CHURN_CYCLES,
+               now=4149.0, before=None, frac=CHURN[0]):
+    """Cycle 0 of the scheduler loop ``sched``, then ``cycles`` churn
+    cycles: ``synthetic.steady_churn`` of ``frac`` of its cluster's gangs
+    (the flushed binds are Bound), marked through the cluster's
+    ``mark_dirty``. ``api``: the
+    cluster's package's ``api``. ``before(c)``, when given, runs just
+    before cycle c's ``run_once`` and ``before(c, ssn)`` just after.
+    Returns each cycle's bind count and bind fingerprint."""
+    import numpy as np
+
+    from volcano_tpu_torch.synthetic import steady_churn
+    rng = np.random.RandomState(seed)
+    out = []
+    for c in range(cycles + 1):
+        if c:
+            jobs, nodes = steady_churn(sched.cluster.ci, rng, frac,
+                                       api=api, bound=api.TaskStatus.BOUND)
+            for uid in jobs:
+                sched.cluster.mark_dirty(job_uid=uid)
+            for name in nodes:
+                sched.cluster.mark_dirty(node_name=name)
+        if before is not None:
+            before(c)
+        ssn = sched.run_once(now=now + c)
+        if before is not None:
+            before(c, ssn)
+        out.append((len(ssn.binds), bind_fingerprint(ssn.binds)))
+    return out
+
+
+def check_o(m_churn):
+    """Phase 30 (check O): the scheduler loop on the card. ``m_churn``:
+    check M's churn cycles, printed beside the loop's. Returns the launch
+    counts of the two loop runs."""
+    import numpy as np
+
+    import volcano_tpu_torch.api as tapi
+    from volcano_tpu_torch.framework import Session
+    from volcano_tpu_torch.ops import round_placer as rp
+    from volcano_tpu_torch.runtime import FakeCluster, Scheduler
+    from volcano_tpu_torch.synthetic import _synthetic_cluster
+
+    # (i) the north star through the loop
+    t0 = time.perf_counter()
+    sched = Scheduler(FakeCluster(_synthetic_cluster(*FULL)),
+                      gang_binpack_conf(), device="cuda")
+    build_s = time.perf_counter() - t0
+    seen = {}
+    rows = []
+
+    def before(c, ssn=None):
+        if ssn is None:
+            # the cycle's reference: a fresh full Session on a copy taken
+            # before the cycle (cycle 0 has the bench's target)
+            seen["copy"] = sched.cluster.ci.clone() if c else None
+            seen["binds0"] = len(sched.cluster.binds)
+            rp.launches = 0
+            return
+        launches = rp.launches
+        st = dict(ssn.stats)
+        rec = sched.flight.snapshots()[-1]
+        res = ssn.last_allocate
+        sha = fingerprint(res.task_node, res.task_mode)
+        flushed = sched.cluster.binds[seen["binds0"]:]
+        row = {"cycle": c, "launches": launches, "binds": len(ssn.binds),
+               "loop_host_s": rec["cycle_ms"] / 1000,
+               "finish_ms": rec["spans"]["cycle.finish"],
+               "open_ms": rec["spans"]["cycle.open"],
+               "refresh": st.get("refresh"),
+               "refresh_ms": st.get("refresh_ms"),
+               "pack_ms": st.get("pack_ms"), "cycle_ms": st["cycle_ms"],
+               "apply_ms": st["apply_ms"], "last_kind": st["last_kind"],
+               "upload_bytes": st["upload_bytes"],
+               "full_upload_bytes": st["full_upload_bytes"],
+               "recoveries": st.get("recoveries", 0),
+               "resync": len(sched.resync), "fingerprint": sha}
+        assert launches > 0, f"loop cycle {c} launched no round placer"
+        assert flushed == [(b.task_uid, b.node_name) for b in ssn.binds], c
+        assert len(sched.resync) == 0 and not ssn.bind_errors, c
+        assert not row["recoveries"], row
+        if c == 0:
+            assert sha == FULL_SHA and row["last_kind"] == "full", row
+            assert len(ssn.binds) == 100000, row
+        else:
+            fresh = Session(seen["copy"], ssn.conf, now=ssn.now,
+                            device="cuda")
+            fresh.run_allocate()
+            fres = fresh.last_allocate
+            row.update(fresh_fingerprint=fingerprint(fres.task_node,
+                                                     fres.task_mode),
+                       fresh_pack_ms=fresh.stats["pack_ms"],
+                       fresh_cycle_ms=fresh.stats["cycle_ms"])
+            m = m_churn[c - 1] if len(m_churn) >= c else {}
+            row.update(m_reopen_to_applied_ms=m.get("reopen_to_applied_ms"),
+                       m_cycle_ms=m.get("cycle_ms"),
+                       m_refresh_ms=m.get("refresh_ms"),
+                       m_binds=m.get("binds"))
+            assert sha == row["fresh_fingerprint"], row
+            assert row["refresh"] and row["last_kind"] == "delta", row
+            assert 0 < row["upload_bytes"] < row["full_upload_bytes"], row
+        rows.append(row)
+        log(json.dumps({"phase": "check_O_loop", **row}))
+
+    loop_churn(sched, tapi, now=time.time(), before=before)
+    assert sched.full_packs == 1 and sched.incremental_cycles == CHURN_CYCLES
+    static = sum(r["launches"] for r in rows)
+
+    # (ii) the shipped conf's action list, held to the JAX Scheduler's
+    shape, want = CHECK_O
+    zero_dyn_counts()
+    shipped = Scheduler(FakeCluster(_synthetic_cluster(*shape)),
+                        shipped_conf(), device="cuda")
+    got = loop_churn(shipped, tapi)
+    counts = dyn_counts()
+    log(json.dumps({"phase": "check_O_shipped", "cycles": got,
+                    "targets": [list(w) for w in want], **counts,
+                    "spans": shipped.flight.snapshots()[-1]["spans"],
+                    "loop_host_s": [r["cycle_ms"] / 1000 for r in
+                                    shipped.flight.snapshots()]}))
+    assert counts["launches"] > 0, "check O launched no dyn placer"
+    assert counts["seg_fold_launches"] > 0, \
+        "check O launched no segmented sum"
+    assert [tuple(g) for g in got] == [tuple(w) for w in want], (got, want)
+    log(json.dumps({"phase": "check_O", "cluster_build_s": build_s,
+                    "round_placer": static, **counts}))
+    return dict(round_placer=static, dyn_placer=counts["launches"],
+                seg_fold=counts["seg_fold_launches"])
 
 
 def time_digest(state, reps=20):
@@ -2442,8 +2612,9 @@ def main():
     except Exception as e:
         fail("26 (check L, 128 namespace-fold pairs)", e)
 
-    # ---- 27. check M: the north star's churn cycles, this slice's path --
+    # ---- 27. check M: the north star's churn cycles --------------------
     clock.lap("27 check_M")
+    m_churn = []
     try:
         # cycle 0 is phase 4's full cycle on ``ssn``, which holds the
         # resident buffers since
@@ -2452,6 +2623,7 @@ def main():
         rng = np.random.RandomState(CHURN[1])
         for c in range(1, CHURN_CYCLES + 1):
             out = churn_cycle(ssn, rng)
+            m_churn.append(out)
             log(json.dumps({"phase": "check_M", "cycle": c, **out}))
         log(json.dumps({"phase": "check_M_digest",
                         **time_digest(next(iter(ssn._resident.values())))}))
@@ -2489,6 +2661,20 @@ def main():
         kernels = check_n(kernels)
     except Exception as e:
         fail("29 (check N, 12 resource dims)", e)
+
+    # ---- 30. check O: the scheduler loop, this slice's main path --------
+    clock.lap("30 check_O")
+    try:
+        # the phases before hold sessions and their resident buffers
+        del ssn
+        import gc
+        gc.collect()
+        loop = check_o(m_churn)
+        for k in kernels:
+            if k["name"] in loop:
+                k["loop_launches"] = loop[k["name"]]
+    except Exception as e:
+        fail("30 (check O, the scheduler loop)", e)
     clock.lap()
 
     log(json.dumps({"phase_seconds": clock.seconds}))

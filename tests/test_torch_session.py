@@ -182,7 +182,9 @@ def test_port_imports_without_jax():
     ``sharding: true`` too, and with ``wave_width: 8`` on top; and the
     enqueue, allocate, backfill actions, the planted sharding check and
     ``run_allocate_oracle`` (``runtime/cpu_reference.py``) on a cluster
-    of 12 resource dims run."""
+    of 12 resource dims run; and two cycles of the scheduler loop
+    (``runtime/scheduler.py`` over ``runtime/fake_cluster.py``, with
+    ``metrics/`` and ``telemetry/``) flush their binds."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'volcano_tpu'):\n"
@@ -237,9 +239,22 @@ def test_port_imports_without_jax():
         "              device='cpu')\n"
         "orc.run_allocate_oracle()\n"
         "assert orc.binds and orc.stats['cpu_oracle'] == 1.0\n"
+        "from volcano_tpu_torch.runtime import FakeCluster, Scheduler\n"
+        "from volcano_tpu_torch.metrics import METRICS\n"
+        "loop = Scheduler(FakeCluster(_synthetic_cluster(16, 8, 4)),\n"
+        "                 chip_smoke.shipped_conf(), device='cpu')\n"
+        "loop.run(2)\n"
+        "assert loop.cluster.binds and loop.cycles == 2\n"
+        "assert METRICS.counter_value('schedule_attempts') == 2\n"
+        "assert loop.flight.snapshots()[-1]['spans']\n"
         "for m in ('volcano_tpu_torch.parallel.sharding',\n"
         "          'volcano_tpu_torch.runtime',\n"
         "          'volcano_tpu_torch.runtime.cpu_reference',\n"
+        "          'volcano_tpu_torch.runtime.scheduler',\n"
+        "          'volcano_tpu_torch.runtime.fake_cluster',\n"
+        "          'volcano_tpu_torch.metrics.metrics',\n"
+        "          'volcano_tpu_torch.telemetry.spans',\n"
+        "          'volcano_tpu_torch.telemetry.flight_recorder',\n"
         "          'volcano_tpu_torch.ops.fused_io',\n"
         "          'volcano_tpu_torch.ops.shard_placer',\n"
         "          'volcano_tpu_torch.ops.shard_wave',\n"

@@ -2,10 +2,13 @@
 
 The whole pass (ordering, predicates, scoring, placement, gang commit or
 discard) is the allocate cycle of ``ops/allocate_scan.py``; this action
-runs it and applies its decisions.
+runs it, applies its decisions and records the reference's readouts
+(``allocated_binds``, ``jobs_ready``, ``jobs_pipelined`` in ``stats``).
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from .base import Action
 
@@ -14,4 +17,8 @@ class AllocateAction(Action):
     name = "allocate"
 
     def execute(self, ssn) -> None:
-        ssn.run_allocate()
+        result = ssn.run_allocate()
+        ssn.stats["allocated_binds"] = len(ssn.binds)
+        ssn.stats["jobs_ready"] = int(np.asarray(result.job_ready).sum())
+        ssn.stats["jobs_pipelined"] = int(
+            np.asarray(result.job_pipelined).sum())

@@ -2,9 +2,10 @@
 
 from .conf import (DEFAULT_SCHEDULER_CONF, Configuration, PluginOption,
                    SchedulerConfiguration, Tier, parse_conf)
-from .session import BindIntent, Session
+from .session import BindIntent, EvictIntent, Session
 
 __all__ = [
     "DEFAULT_SCHEDULER_CONF", "Configuration", "PluginOption",
-    "SchedulerConfiguration", "Tier", "parse_conf", "BindIntent", "Session",
+    "SchedulerConfiguration", "Tier", "parse_conf", "BindIntent",
+    "EvictIntent", "Session",
 ]

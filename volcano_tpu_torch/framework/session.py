@@ -35,11 +35,20 @@ resident buffers against their host mirror.
 (``runtime/cpu_reference.py``) when a caller asks for it; nothing on the
 card path falls back to it.
 
+The session feeds the port's ``METRICS`` registry and trace spans as the
+reference's does: plugin open and close latencies, ``cycle_upload_bytes``
+of the delta path, digest mismatches and recoveries, the queue and
+namespace gauge families at close, and the ``session.*`` spans (extras,
+dispatch, readback, digest, recovery, unpack, apply). The synchronous
+scheduler loop over it is ``runtime/scheduler.Scheduler``.
+
 Not carried yet (ROADMAP): pipelined dispatch (depth k, speculation, an
-asynchronous pack), the CPU-oracle rung, warm-restart mirrors, chaos
-seams, metrics and trace spans (items 2b, 8 and 10); the mesh path's
-residency and a mesh over several cards (item 6c); telemetry; and the
-preempt and reclaim passes.
+asynchronous pack) and the degradation ladder (item 2b, the next slice);
+warm-restart mirrors (item 8); chaos seams (item 10); the mesh path's
+residency and a mesh over several cards (item 6c); the in-graph
+telemetry (item 7, so ``last_telemetry`` holds only a recovery's
+``integrity`` record); and the preempt and reclaim passes, so
+``evictions`` stays empty (item 5b).
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from ..arrays import pack, to_device
 from ..arrays.affinity import build_affinity
 from ..arrays.hierarchy import build_hierarchy
 from ..arrays.pack import queue_capability_row, queue_parent_depth
+from ..metrics import METRICS
 from ..ops.allocate_scan import (MODE_ALLOCATED, AllocateConfig,
                                  AllocateExtras, cycle_path,
                                  derive_batching, make_allocate_cycle,
@@ -66,6 +76,7 @@ from ..ops.allocate_scan import (MODE_ALLOCATED, AllocateConfig,
 from ..ops.backfill import make_backfill_pass
 from ..ops.fused_io import ResidentState, delta_cycle_cached, tree_leaves
 from ..ops.enqueue import EnqueueConfig, make_enqueue_pass
+from ..telemetry import spans as _spans
 from .conf import SchedulerConfiguration, parse_conf
 
 
@@ -78,6 +89,16 @@ class BindIntent:
     job_uid: str
     node_name: str
     gpu_index: int = -1  # shared-GPU card (AddGPUIndexPatch, pod_info.go:154)
+
+
+@dataclasses.dataclass
+class EvictIntent:
+    """A decided eviction (cache.Evict seam, cache.go:496). No pass of the
+    port evicts yet (preempt and reclaim are ROADMAP item 5b)."""
+
+    task_uid: str
+    job_uid: str
+    reason: str = ""
 
 
 #: (cfg, shape signature, device) -> DeltaKernel: the device-resident
@@ -140,10 +161,14 @@ class Session:
 
     def _open_plugins(self) -> None:
         for p in self.plugins:
+            t0 = time.time()
             p.on_session_open(self)
+            METRICS.observe_plugin(p.name, "OnSessionOpen",
+                                   time.time() - t0)
 
     def _reset_cycle_state(self) -> None:
         self.binds: List[BindIntent] = []
+        self.evictions: List[EvictIntent] = []
         self.bind_errors: List[tuple] = []      # (task uid, node, error)
         self.pipelined: Dict[str, str] = {}     # task uid -> node name
         self.conditions: Dict[str, str] = {}    # job uid -> condition type
@@ -151,7 +176,14 @@ class Session:
         self.last_enqueue = None        # bool[J] admitted by the last enqueue
         self.last_allocate = None
         self.last_backfill = None       # (task_node, placed) of the last one
+        #: the deserved shares this cycle's allocate computed, for the
+        #: queue gauge family at close
+        self._last_queue_deserved = None
         self.stats: Dict[str, float] = {}
+        #: per-pass records of this cycle: only ``integrity`` (a
+        #: recovery's reason, mode and ms) until the in-graph telemetry
+        #: is ported (ROADMAP item 7)
+        self.last_telemetry: Dict[str, object] = {}
         # the jobs and nodes refresh_snapshot patches: apply records its
         # touches, other mutators call mark_dirty. Kept across this reset,
         # so a reopened session refreshes what the last cycle touched.
@@ -591,6 +623,7 @@ class Session:
             deserved = p.queue_deserved(self)
             if deserved is not None:
                 extras.queue_deserved = np.asarray(deserved, np.float32)
+                self._last_queue_deserved = extras.queue_deserved
             share = p.job_order_share(self)
             if share is not None and p.option.enabled_job_order:
                 extras.job_share = np.asarray(share, np.float32)
@@ -742,7 +775,8 @@ class Session:
         ``full_upload_bytes``, ``last_kind`` ("full", "delta"),
         ``extras_ms`` and ``dispatch_ms``."""
         t0 = time.perf_counter()
-        cfg, extras = self._derived_allocate_inputs()
+        with _spans.span("session.extras"):
+            cfg, extras = self._derived_allocate_inputs()
         extras_ms = (time.perf_counter() - t0) * 1000
         t0 = time.perf_counter()
         snap = self.snap
@@ -752,22 +786,31 @@ class Session:
         tree = (snap, extras)
         pending = PendingAllocate(packed=None, cfg=cfg, T=T, J=J,
                                   extras_ms=extras_ms, tree=tree)
-        if mesh is None and bool(getattr(self.conf, "delta_uploads", True)):
-            kernel = delta_cycle_cached(
-                make_allocate_cycle(cfg), tree, _DELTA_CACHE, self.device,
-                dec_len=3 * T + 3 * J, key_extra=cfg)
-            state = self._resident.setdefault(id(kernel), ResidentState())
-            pending.packed = kernel.run(state, tree)
-            pending.kernel, pending.state = kernel, state
-            pending.tail, pending.dec_epoch = state.last_tail, state.dec_epoch
-            upload, full, kind = (state.last_upload_bytes,
-                                  state.full_upload_bytes, state.last_kind)
-        else:
-            pending.packed = make_allocate_cycle(cfg, mesh=mesh)(
-                to_device(snap, self.device),
-                to_device(extras, self.device)).packed_decisions()
-            full = sum(np.asarray(x).nbytes for x in tree_leaves(tree))
-            upload, kind = full, "full"
+        with _spans.span("session.dispatch", cat="dispatch"):
+            if mesh is None and bool(getattr(self.conf, "delta_uploads",
+                                             True)):
+                kernel = delta_cycle_cached(
+                    make_allocate_cycle(cfg), tree, _DELTA_CACHE,
+                    self.device, dec_len=3 * T + 3 * J, key_extra=cfg)
+                state = self._resident.setdefault(id(kernel),
+                                                  ResidentState())
+                pending.packed = kernel.run(state, tree)
+                pending.kernel, pending.state = kernel, state
+                pending.tail = state.last_tail
+                pending.dec_epoch = state.dec_epoch
+                upload, full, kind = (state.last_upload_bytes,
+                                      state.full_upload_bytes,
+                                      state.last_kind)
+                METRICS.inc("cycle_upload_bytes", upload,
+                            labels={"kind": kind})
+            else:
+                pending.packed = make_allocate_cycle(cfg, mesh=mesh)(
+                    to_device(snap, self.device),
+                    to_device(extras, self.device)).packed_decisions()
+                full = sum(np.asarray(x).nbytes for x in tree_leaves(tree))
+                upload, kind = full, "full"
+                if mesh is not None:
+                    self.stats["mesh_devices"] = float(mesh.size)
         pending.dispatch_ms = (time.perf_counter() - t0) * 1000
         self.stats.update(path=cycle_path(cfg, snap, extras, mesh),
                           upload_bytes=float(upload),
@@ -800,7 +843,8 @@ class Session:
         that fails raises."""
         kernel, state = pending.kernel, pending.state
         if kernel is None:
-            packed = pending.packed.cpu().numpy()
+            with _spans.span("session.readback", cat="wait"):
+                packed = pending.packed.cpu().numpy()
             self.stats["drain_readback_bytes"] = float(packed.nbytes)
             self.stats["drain_readback_rows"] = float(packed.shape[0])
             return packed
@@ -811,10 +855,15 @@ class Session:
         if (kernel.rb_cap and pending.tail is not None and same_chain
                 and mirror is not None and mirror.shape[0] == kernel.dec_len):
             try:
-                tail = pending.tail.cpu().numpy()
-                dig, cnt, idx, vals = kernel.split_tail(tail)
-                if not np.array_equal(dig, kernel.mirror_digest(state)):
+                with _spans.span("session.readback", cat="wait"):
+                    tail = pending.tail.cpu().numpy()
+                with _spans.span("session.digest"):
+                    dig, cnt, idx, vals = kernel.split_tail(tail)
+                    tripped = not np.array_equal(
+                        dig, kernel.mirror_digest(state))
+                if tripped:
                     reason = "digest"
+                    self._digest_trip()
                 else:
                     checked = True
                     if cnt <= kernel.rb_cap:
@@ -827,14 +876,18 @@ class Session:
                 reason = f"readback:{type(e).__name__}"
         if packed is None and reason is None:
             try:
-                full = pending.packed.cpu().numpy()
+                with _spans.span("session.readback", cat="wait"):
+                    full = pending.packed.cpu().numpy()
             except RuntimeError as e:
                 reason = f"readback:{type(e).__name__}"
             else:
-                packed, dig = kernel.split_digest(full)
-                if not checked and not np.array_equal(
-                        dig, kernel.mirror_digest(state)):
+                with _spans.span("session.digest"):
+                    packed, dig = kernel.split_digest(full)
+                    tripped = not checked and not np.array_equal(
+                        dig, kernel.mirror_digest(state))
+                if tripped:
                     reason, packed = "digest", None
+                    self._digest_trip()
                 else:
                     self.stats["drain_readback_bytes"] = float(full.nbytes)
                     self.stats["drain_readback_rows"] = float(full.shape[0])
@@ -844,29 +897,50 @@ class Session:
                 state.dec_mirror = np.array(packed, np.int32)
             return packed
         t0 = time.perf_counter()
-        full = kernel.recover(state, pending.tree).cpu().numpy()
-        packed, dig = kernel.split_digest(full)
-        if not np.array_equal(dig, kernel.mirror_digest(state)):
-            raise RuntimeError("the resident buffers' digest differs from "
-                               "the mirror's after a full upload and re-run")
+        with _spans.span("session.recovery", cat="recovery"):
+            full = kernel.recover(state, pending.tree).cpu().numpy()
+            packed, dig = kernel.split_digest(full)
+            if not np.array_equal(dig, kernel.mirror_digest(state)):
+                raise RuntimeError("the resident buffers' digest differs "
+                                   "from the mirror's after a full upload "
+                                   "and re-run")
+        ms = (time.perf_counter() - t0) * 1000
+        # the reference's mode vocabulary: "refuse" is the full upload and
+        # re-run; the port has no CPU-oracle mode (a failed recovery raises)
+        METRICS.inc("cycle_recoveries_total",
+                    labels={"reason": reason.split(":")[0],
+                            "mode": "refuse"})
+        self.last_telemetry["integrity"] = dict(
+            reason=reason, mode="refuse", recovery_ms=round(ms, 3))
+        _spans.log_event("recovery", source="session", reason=reason,
+                         mode="refuse", recovery_ms=round(ms, 3))
         self.stats["recoveries"] = self.stats.get("recoveries", 0) + 1
         self.stats["recovery_reason"] = reason
-        self.stats["recovery_ms"] = (time.perf_counter() - t0) * 1000
+        self.stats["recovery_ms"] = ms
         self.stats["drain_readback_bytes"] = float(full.nbytes)
         self.stats["drain_readback_rows"] = float(full.shape[0])
         return packed
 
+    @staticmethod
+    def _digest_trip() -> None:
+        """A device digest that differs from the mirror's: counted and
+        logged before the recovery."""
+        METRICS.inc("resident_digest_mismatch_total")
+        _spans.log_event("digest_trip", source="session")
+
     def apply_packed(self, packed: np.ndarray, T: int, J: int):
         """Decode a packed decision vector and apply it to this session."""
-        (task_node, task_mode, task_gpu, job_ready, job_pipelined,
-         job_attempted) = unpack_decisions(packed, T, J)
+        with _spans.span("session.unpack"):
+            (task_node, task_mode, task_gpu, job_ready, job_pipelined,
+             job_attempted) = unpack_decisions(packed, T, J)
         result = types.SimpleNamespace(
             task_node=task_node, task_mode=task_mode, task_gpu=task_gpu,
             job_ready=job_ready, job_pipelined=job_pipelined,
             job_attempted=job_attempted)
         self.last_allocate = result
         t0 = time.perf_counter()
-        self.apply_allocate(result)
+        with _spans.span("session.apply"):
+            self.apply_allocate(result)
         self.stats["apply_ms"] = (time.perf_counter() - t0) * 1000
         return result
 
@@ -1058,4 +1132,79 @@ class Session:
     # --------------------------------------------------------------- close
     def close(self) -> None:
         for p in self.plugins:
+            t0 = time.time()
             p.on_session_close(self)
+            METRICS.observe_plugin(p.name, "OnSessionClose",
+                                   time.time() - t0)
+        self._flush_metric_families()
+
+    def _flush_metric_families(self) -> None:
+        """Queue and namespace gauge families at session close (the
+        proportion plugin's metrics updates, queue.go:28-284, and
+        namespace.go:28-63), from the packed aggregates, so every conf
+        exposes them."""
+        snap, maps = self.snap, self.maps
+        dims = maps.resource_names
+        ci_cpu = dims.index("cpu") if "cpu" in dims else -1
+        ci_mem = dims.index("memory") if "memory" in dims else -1
+
+        def dim(row, i):
+            # Resource keeps cpu in millicores and memory in bytes: the
+            # gauges' units (queue.go:28-60)
+            return float(row[i]) if i >= 0 else 0.0
+
+        q_alloc = np.asarray(snap.queues.allocated)
+        q_req = np.asarray(snap.queues.request)
+        q_weight = np.asarray(snap.queues.weight)
+        # the deserved shares this cycle's allocate computed
+        deserved = self._last_queue_deserved
+        pg_counts: Dict[str, list] = {}
+        for job in self.cluster.jobs.values():
+            c = pg_counts.setdefault(job.queue, [0, 0, 0, 0])
+            ph = job.pod_group_phase
+            if ph == PodGroupPhase.INQUEUE:
+                c[0] += 1
+            elif ph == PodGroupPhase.PENDING:
+                c[1] += 1
+            elif ph == PodGroupPhase.RUNNING:
+                c[2] += 1
+            else:
+                c[3] += 1
+        for qi, name in enumerate(maps.queue_names):
+            des_row = (deserved[qi] if deserved is not None
+                       else np.full(len(dims), np.inf))
+            finite = np.isfinite(des_row) & (des_row > 0)
+            share = float(np.max(np.where(
+                finite, q_alloc[qi] / np.maximum(des_row, 1e-9), 0.0)))
+            overused = bool(np.any(q_alloc[qi] > des_row + 1e-6))
+            known = deserved is not None and np.isfinite(des_row).all()
+            pg = pg_counts.get(name, [0, 0, 0, 0])
+            METRICS.update_queue_family(
+                name,
+                allocated_milli_cpu=dim(q_alloc[qi], ci_cpu),
+                allocated_memory_bytes=dim(q_alloc[qi], ci_mem),
+                request_milli_cpu=dim(q_req[qi], ci_cpu),
+                request_memory_bytes=dim(q_req[qi], ci_mem),
+                deserved_milli_cpu=dim(des_row, ci_cpu) if known else 0.0,
+                deserved_memory_bytes=(dim(des_row, ci_mem) if known
+                                       else 0.0),
+                share=share, weight=float(q_weight[qi]),
+                overused=overused,
+                pg_inqueue=pg[0], pg_pending=pg[1],
+                pg_running=pg[2], pg_unknown=pg[3])
+        # namespace share and weight (namespace.go:28-63): the weighted
+        # dominant share of the member jobs' allocations, in numpy
+        jns = np.asarray(snap.jobs.namespace)
+        jvalid = np.asarray(snap.jobs.valid)
+        nsw = np.asarray(snap.namespace_weight)
+        j_alloc = np.where(jvalid[:, None],
+                           np.asarray(snap.jobs.allocated), 0.0)
+        S = nsw.shape[0]
+        ns_alloc = np.zeros((S, j_alloc.shape[1]))
+        np.add.at(ns_alloc, np.clip(jns, 0, S - 1), j_alloc)
+        total = np.asarray(snap.cluster_capacity)
+        frac = np.where(total > 0, ns_alloc / np.maximum(total, 1e-6), 0.0)
+        share_raw = frac.max(axis=-1)
+        for si, name in enumerate(maps.namespace_names):
+            METRICS.update_namespace_family(
+                name, float(share_raw[si]), float(nsw[si]))

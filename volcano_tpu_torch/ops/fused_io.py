@@ -45,6 +45,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import spans as _spans
+
 _GROUPS = ("f", "i", "b")
 _TARGETS = {"f": np.float32, "i": np.int32, "b": np.bool_}
 _TORCH = {"f": torch.float32, "i": torch.int32, "b": torch.bool}
@@ -317,14 +319,15 @@ class DeltaKernel:
         and a re-run: trusts neither the resident buffers nor the mirror,
         so it heals a corrupted buffer and a drifted mirror alike. The
         decisions chain is cut: the next drain reads in full."""
-        state.device = None
-        state.mirror = None
-        state.dec_mirror = None
-        state.dec_device = None
-        state.dec_epoch += 1
-        packed = self.run(state, tree, force_full=True)
-        state.last_kind = "recovery"
-        return packed
+        with _spans.span("delta.recover", cat="recovery"):
+            state.device = None
+            state.mirror = None
+            state.dec_mirror = None
+            state.dec_device = None
+            state.dec_epoch += 1
+            packed = self.run(state, tree, force_full=True)
+            state.last_kind = "recovery"
+            return packed
 
     # ------------------------------------------------------------- running
     def _upload_deltas(self, resident, deltas) -> int:
@@ -357,55 +360,64 @@ class DeltaKernel:
         packed decisions and the digest on the device, i32 [dec_len + 3]
         (the caller reads it back); ``state`` takes the new residency and
         counters, and the changed-rows tail (``last_tail``)."""
-        bufs = fuse_into(tree, self.spec, self.sizes, out=state.scratch)
+        with _spans.span("delta.pack"):
+            bufs = fuse_into(tree, self.spec, self.sizes, out=state.scratch)
         state.scratch = None
         full_bytes = int(sum(b.nbytes for b in bufs))
         deltas = None
         if state.mirror is not None and state.device is not None \
                 and not force_full:
-            deltas = []
-            total = 0
-            for new, old in zip(bufs, state.mirror):
-                # bits, not values: a NaN or a sign of zero is a change
-                nv = new.view(np.int32) if new.dtype == np.float32 else new
-                ov = old.view(np.int32) if old.dtype == np.float32 else old
-                idx = np.flatnonzero(nv != ov).astype(np.int32)
-                deltas.append((idx, new[idx]))
-                total += int(idx.size)
+            with _spans.span("delta.diff"):
+                deltas = []
+                total = 0
+                for new, old in zip(bufs, state.mirror):
+                    # bits, not values: a NaN or a sign of zero is a change
+                    nv = (new.view(np.int32) if new.dtype == np.float32
+                          else new)
+                    ov = (old.view(np.int32) if old.dtype == np.float32
+                          else old)
+                    idx = np.flatnonzero(nv != ov).astype(np.int32)
+                    deltas.append((idx, new[idx]))
+                    total += int(idx.size)
             if 2 * total >= sum(self.sizes):
                 # a delta this large ships more than the buffers
                 deltas = None
         if deltas is None:
-            state.device = tuple(
-                torch.from_numpy(b).to(self.device, copy=True)
-                for b in bufs)
+            with _spans.span("delta.upload"):
+                state.device = tuple(
+                    torch.from_numpy(b).to(self.device, copy=True)
+                    for b in bufs)
             state.full_cycles += 1
             state.last_kind = "full"
             state.last_upload_bytes = full_bytes
-        else:
-            state.last_upload_bytes = self._upload_deltas(state.device,
-                                                          deltas)
-            state.delta_cycles += 1
-            state.last_kind = "delta"
-        state.full_upload_bytes = full_bytes
-        # ping-pong: the old mirror is the next cycle's scratch
-        state.scratch, state.mirror = state.mirror, bufs
-        packed = self.cycle_fn(*self.unfuse(*state.device)) \
-            .packed_decisions()
-        if self._coefs is None:
-            self._coefs = [digest_coef(n, self.device) for n in self.sizes]
-        # after the cycle: the check covers what the cycle left in the
-        # buffers, which the next delta diffs against
-        dig = device_digest(state.device, self._coefs)
-        state.last_tail = None
-        if self.rb_cap and packed.shape[0] == self.dec_len:
-            prev = state.dec_device
-            if prev is None:
-                prev = torch.zeros_like(packed)
-                state.dec_mirror = None
-            state.last_tail = self._tail(packed, prev, dig)
-            state.dec_device = packed
-        return torch.cat([packed, dig])
+        # the deltas' scatter, the cycle, the digest and the tail: the
+        # reference's one dispatch
+        with _spans.span("delta.dispatch", cat="dispatch"):
+            if deltas is not None:
+                state.last_upload_bytes = self._upload_deltas(state.device,
+                                                              deltas)
+                state.delta_cycles += 1
+                state.last_kind = "delta"
+            state.full_upload_bytes = full_bytes
+            # ping-pong: the old mirror is the next cycle's scratch
+            state.scratch, state.mirror = state.mirror, bufs
+            packed = self.cycle_fn(*self.unfuse(*state.device)) \
+                .packed_decisions()
+            if self._coefs is None:
+                self._coefs = [digest_coef(n, self.device)
+                               for n in self.sizes]
+            # after the cycle: the check covers what the cycle left in the
+            # buffers, which the next delta diffs against
+            dig = device_digest(state.device, self._coefs)
+            state.last_tail = None
+            if self.rb_cap and packed.shape[0] == self.dec_len:
+                prev = state.dec_device
+                if prev is None:
+                    prev = torch.zeros_like(packed)
+                    state.dec_mirror = None
+                state.last_tail = self._tail(packed, prev, dig)
+                state.dec_device = packed
+            return torch.cat([packed, dig])
 
     def _tail(self, dec, prev, dig):
         """[digest | count | rows | values]: the first ``rb_cap`` rows of

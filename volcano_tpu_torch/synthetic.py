@@ -242,15 +242,19 @@ def affinity_scenario(n_nodes: int = 10000, n_jobs: int = 2500,
     return ci
 
 
-def steady_churn(cluster: ClusterInfo, rng, frac: float = 0.05, api=None):
+def steady_churn(cluster: ClusterInfo, rng, frac: float = 0.05, api=None,
+                 bound=None):
     """One cycle's churn of a steady training cluster, in place: of the
     gangs whose tasks are all bound (Binding), ``frac`` complete (their
     tasks Succeeded and off their nodes) and another ``frac`` go back to
     Pending (a gang resubmitted), as ``tests/test_refresh.py`` resets one.
-    ``rng``: a ``numpy.random.RandomState``. Returns the touched job uids
-    and node names, for ``Session.mark_dirty``."""
+    ``rng``: a ``numpy.random.RandomState``. ``bound``: the status of a
+    bound task, Binding by default (a Session's binds); the scheduler loop
+    flushes its binds to the cluster, which marks them Bound. Returns the
+    touched job uids and node names, for ``Session.mark_dirty`` or the
+    cluster's ``mark_dirty``."""
     api = api or port_api
-    bound = api.TaskStatus.BINDING
+    bound = api.TaskStatus.BINDING if bound is None else bound
     placed = sorted(uid for uid, job in cluster.jobs.items()
                     if job.tasks and all(t.status == bound
                                          for t in job.tasks.values()))
